@@ -1,16 +1,21 @@
 """libmpc_tpu_torch: the PyTorch and CUDA port of libmpc-tpu.
 
 Linear MPC over a sparse simultaneous QP, solved by a batched
-OSQP-equivalent ADMM solver whose iteration blocks and polish capacitance
-inverses run in hand-written CUDA kernels on an NVIDIA H100 (float32 or
-float64), and in plain PyTorch on the CPU.  The JAX package ``libmpc_tpu``
-is the reference this port is held against; this package imports neither
-it nor JAX.  Not ported yet: NLMPC, rollouts, fleets, checkpoints and the
+OSQP-equivalent ADMM solver, and nonlinear MPC by a batched SQP with exact
+``torch.func`` derivatives.  The ADMM iteration blocks, the small SPD
+inverses and the SQP's whole inner-QP solves run in hand-written CUDA
+kernels on an NVIDIA H100 (float32 or float64), and in plain PyTorch on the
+CPU.  Controllers run on the CUDA card unless built with ``device="cpu"``.
+The JAX package ``libmpc_tpu`` is the reference this port is held against;
+this package imports neither it nor JAX.  Not ported yet: the SQP's
+``inner_qp="admm"`` and ``"riccati"`` engines, fleets, checkpoints and the
 compatibility surface.
 """
 
 from .dims import LDims, NLDims
 from .lmpc.controller import LMPC
+from .nlmpc.controller import NLMPC
+from .rollout import Rollout, lmpc_rollout, nlmpc_rollout
 from .types import (
     ConstraintsType,
     HorizonSlice,
@@ -20,6 +25,7 @@ from .types import (
     Parameters,
     Result,
     ResultStatus,
+    default_device,
     default_dtype,
     inf,
     set_default_dtype,
@@ -37,6 +43,10 @@ __version__ = "0.5.0"
 
 __all__ = [
     "LMPC",
+    "NLMPC",
+    "Rollout",
+    "lmpc_rollout",
+    "nlmpc_rollout",
     "LDims",
     "NLDims",
     "HorizonSlice",
@@ -58,6 +68,7 @@ __all__ = [
     "rk4",
     "rk4_step",
     "inf",
+    "default_device",
     "default_dtype",
     "set_default_dtype",
 ]

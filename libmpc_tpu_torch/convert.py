@@ -4,7 +4,12 @@ The two packages compute the same things from the same data: a test builds
 a controller in ``libmpc_tpu``, converts its problem record (``_prob``), its
 prepared solver state (``_built``) or its warm start to numpy
 (``{k: np.asarray(v)}``), and hands them to these functions to get the
-port's tensors on a chosen device and dtype.  Nothing here imports JAX.
+port's tensors on a chosen device and dtype.  NLMPC state crosses the same
+way: the warm start and bounds of a controller
+(:func:`nlmpc_state_to_numpy` / :func:`nlmpc_state_from_numpy`, whose keys
+are the attributes both packages' ``NLMPC`` share) and an SQP loop carry by
+field name (:func:`carry_from_numpy` / :func:`carry_to_numpy`), so a test can
+start both packages from the same state.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from .lmpc.problem import LProblemData
 from .ops.admm import PreparedQP
+from .ops.sqp import Carry
 
 
 def _tensor(v, device, dtype):
@@ -63,3 +69,63 @@ def warm_start_from_numpy(x, y, device="cpu",
 
 def warm_start_to_numpy(x, y) -> Tuple[np.ndarray, np.ndarray]:
     return x.detach().cpu().numpy(), y.detach().cpu().numpy()
+
+
+_CARRY_INT = ("it", "status", "ls_fails", "stall")
+
+
+def carry_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
+                     dtype=torch.float64) -> Carry:
+    """An SQP :class:`Carry` (batch axis leading) from numpy arrays named by
+    its fields; counters become int32, flags stay bool."""
+    out = {}
+    for k in Carry._fields:
+        a = np.array(arrays[k])
+        if k in _CARRY_INT:
+            out[k] = torch.as_tensor(a.astype(np.int32), device=device)
+        else:
+            out[k] = _tensor(a, device, dtype)
+    return Carry(**out)
+
+
+def carry_to_numpy(carry: Carry) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in carry._asdict().items()}
+
+
+def nlmpc_state_to_numpy(controller) -> dict:
+    """Warm start, last command and status, and bounds of an ``NLMPC`` (of
+    either package: the attribute names are shared) as numpy arrays."""
+    c = controller
+    host = lambda v: None if v is None else (
+        v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+    ib = c._instance_bounds
+    return {
+        "opt_vector": host(c._opt_vector),
+        "current_slack": host(c._current_slack),
+        "first_iteration": bool(c._first_iteration),
+        "cmd": host(c._result.cmd),
+        "status": host(c._result.status),
+        "lb": np.array(c._lb, float),
+        "ub": np.array(c._ub, float),
+        "instance_lb": None if ib is None else host(ib[0]),
+        "instance_ub": None if ib is None else host(ib[1]),
+    }
+
+
+def nlmpc_state_from_numpy(controller, state: Mapping) -> None:
+    """Load :func:`nlmpc_state_to_numpy`'s record into the port's ``NLMPC``
+    (tensors on the controller's device, in its dtype)."""
+    c = controller
+    t = lambda v: _tensor(v, c.device, c.dtype)
+    c._opt_vector = None if state["opt_vector"] is None else t(state["opt_vector"])
+    c._current_slack = t(state["current_slack"])
+    c._first_iteration = bool(state["first_iteration"])
+    c._result = dataclasses.replace(
+        c._result, cmd=t(state["cmd"]),
+        status=torch.as_tensor(np.array(state["status"]).astype(np.int32),
+                               device=c.device))
+    c._lb = np.array(state["lb"], float)
+    c._ub = np.array(state["ub"], float)
+    c._instance_bounds = (
+        None if state["instance_lb"] is None
+        else (t(state["instance_lb"]), t(state["instance_ub"])))

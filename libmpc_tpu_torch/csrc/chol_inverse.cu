@@ -12,23 +12,19 @@
 // The TPU kernel puts 128 matrices side by side in the vector lanes; that
 // layout is a TPU device and does not carry over.  Here one warp owns one
 // matrix, held in shared memory with an odd row stride (k + 1) so that the
-// lanes' strided row accesses hit distinct banks:
-//   * factorization: at step p the lanes scale column p below the pivot,
-//     then each lane updates one trailing row (lane-parallel rank-1 update);
-//   * solves: each lane owns columns of the right-hand side I and runs both
-//     triangular solves on them alone, reading the factor by broadcast.
+// lanes' strided row accesses hit distinct banks; the factorization and the
+// two triangular solves are libmpc::warp_chol_inverse (chol_warp.cuh).
 // A block holds several warps (as many as fit in 48 KB) and masks the
 // ragged end of the batch itself; nothing is padded.  k <= 64 (two rows or
 // columns per lane at most).
 
 #include <cuda_runtime.h>
 
+#include "chol_warp.cuh"
+
 namespace {
 
 constexpr int kMaxK = 64;
-
-__device__ __forceinline__ float rsqrt_t(float v) { return rsqrtf(v); }
-__device__ __forceinline__ double rsqrt_t(double v) { return rsqrt(v); }
 
 template <typename T>
 __global__ void chol_inverse_kernel(const T* __restrict__ C, T* __restrict__ out,
@@ -50,38 +46,7 @@ __global__ void chol_inverse_kernel(const T* __restrict__ C, T* __restrict__ out
   }
   __syncwarp();
 
-  // right-looking Cholesky on the lower triangle
-  for (int p = 0; p < k; ++p) {
-    const T d = L[p * ld + p];
-    const T guard = T(1e-30);
-    const T dg = d != d ? d : (d > guard ? d : guard);  // max(d, 1e-30)
-    const T inv = rsqrt_t(dg);
-    __syncwarp();
-    for (int i = p + lane; i < k; i += 32) L[i * ld + p] *= inv;
-    __syncwarp();
-    for (int i = p + 1 + lane; i < k; i += 32) {
-      const T li = L[i * ld + p];
-      for (int j = p + 1; j <= i; ++j) L[i * ld + j] -= li * L[j * ld + p];
-    }
-    __syncwarp();
-  }
-
-  // X = L^-T L^-1, one right-hand-side column per lane
-  for (int c = lane; c < k; c += 32) {
-    // forward: L Y = I (Y is lower triangular, so rows above c stay 0)
-    for (int p = 0; p < k; ++p) {
-      T acc = T(0);
-      for (int j = 0; j < p; ++j) acc += L[p * ld + j] * X[j * ld + c];
-      X[p * ld + c] = ((p == c ? T(1) : T(0)) - acc) / L[p * ld + p];
-    }
-    // backward: L' X = Y, in place
-    for (int p = k - 1; p >= 0; --p) {
-      T acc = T(0);
-      for (int j = p + 1; j < k; ++j) acc += L[j * ld + p] * X[j * ld + c];
-      X[p * ld + c] = (X[p * ld + c] - acc) / L[p * ld + p];
-    }
-  }
-  __syncwarp();
+  libmpc::warp_chol_inverse(L, X, k, ld, lane);
 
   T* Om = out + (size_t)mat * k * k;
   for (int e = lane; e < k * k; e += 32) {

@@ -30,6 +30,7 @@ from ..types import (
     Result,
     ResultStatus,
     default_dtype,
+    resolve_device,
 )
 from ..utils import deadline
 from ..utils.logger import Logger, LogLevel
@@ -192,7 +193,8 @@ class LMPC:
 
     Construction takes the problem dimensions directly (the analog of both the
     reference's template and dynamic constructors), plus the working dtype
-    and the device the solves run on::
+    and the device the solves run on (the CUDA card unless ``device`` says
+    otherwise; ``device="cpu"`` runs on the CPU)::
 
         controller = LMPC(nx=12, nu=4, ndu=4, ny=12, ph=10, ch=10,
                           dtype=torch.float32, device="cuda")
@@ -211,7 +213,7 @@ class LMPC:
     ):
         self.dims = LDims(nx, nu, ndu, ny, ph, ch).validate()
         self.dtype = dtype or default_dtype()
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self._prob = qp.init_problem(self.dims, self.dtype, self.device)
         self._params = LParameters()
         # references / exogenous inputs, time-major (ph, feature)

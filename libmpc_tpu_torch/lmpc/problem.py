@@ -33,7 +33,7 @@ from typing import Tuple
 import torch
 
 from ..dims import LDims
-from ..types import default_dtype, inf
+from ..types import default_dtype, inf, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +77,7 @@ def init_problem(dims: LDims, dtype=None, device=None) -> LProblemData:
     """Default-initialized problem: zero model/weights, +-inf bounds
     (reference: include/mpc/LMPC/ProblemBuilder.hpp:120-149)."""
     dtype = dtype or default_dtype()
+    device = resolve_device(device)
     nxu = dims.nxu
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     full = lambda v, *s: torch.full(s, v, dtype=dtype, device=device)

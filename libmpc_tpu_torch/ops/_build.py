@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
 The kernels (``libmpc_tpu_torch/csrc/*.cu``) have a plain C interface and
-are compiled by ``nvcc`` into one shared library for ``sm_90a``, then bound
-with ``ctypes``.  The library is cached under ``libmpc_tpu_torch/_build/``
+are compiled by ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all
+started together — linked into one shared library, then bound with
+``ctypes``.  The library is cached under ``libmpc_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the sources and the compiler
 flags, so a checkout builds once and a changed source rebuilds.
 
@@ -26,10 +27,11 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("admm_fused.cu", "chol_inverse.cu")
+SOURCES = ("admm_fused.cu", "chol_inverse.cu", "qp_inner.cu")
+HEADERS = ("chol_warp.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -51,6 +53,11 @@ _SIGNATURES = {
     # C out B k stream
     "libmpc_chol_inverse_f32": [_P, _P, _I, _I, _P],
     "libmpc_chol_inverse_f64": [_P, _P, _I, _I, _P],
+    # P A q l u rho x0 y0 dinv einv cinv | xo yo zo iters done pri dua |
+    # B n m | sigma alpha eps_abs eps_rel | n_blocks check_every refine warps |
+    # stream
+    "libmpc_qp_inner_f32": [_P] * 18 + [_I] * 3 + [_D] * 4 + [_I] * 4 + [_P],
+    "libmpc_qp_inner_f64": [_P] * 18 + [_I] * 3 + [_D] * 4 + [_I] * 4 + [_P],
 }
 
 
@@ -71,7 +78,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -85,20 +92,38 @@ def build() -> Path:
         build_info.update(seconds=0.0, cached=True, path=str(target))
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = find_nvcc()
+    tag = f"{target.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                for src, obj in zip(SOURCES, objects)]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objects)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = []
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        results = [(cmd, p.communicate()[0], p.returncode)
+                   for cmd, p in zip(compiles, procs)]
+        done = subprocess.run(link, capture_output=True, text=True) \
+            if all(rc == 0 for _, _, rc in results) else None
+        if done is not None:
+            results.append((link, done.stdout + done.stderr, done.returncode))
+        for cmd, out, rc in results:
+            log.append(out)
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+        os.replace(tmp, target)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)
-    build_info.update(seconds=seconds, cached=False, path=str(target),
-                      command=" ".join(cmd), log=proc.stdout + proc.stderr)
+    build_info.update(
+        seconds=seconds, cached=False, path=str(target),
+        command="\n".join(" ".join(c) for c in compiles + [link]),
+        log="".join(log))
     return target
 
 

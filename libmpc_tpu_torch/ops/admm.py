@@ -104,11 +104,17 @@ def _ruiz_equilibration(P, A, q_ref, iters: int):
     such that the scaled problem is ``(c d P d, c d q, e A d, e l, e u)``.
     ``q_ref`` is a representative linear term (batch max-abs) used only for
     the cost scaling; it does not affect the fixed point being computed.
+
+    ``P`` (..., n, n), ``A`` (..., m, n) and ``q_ref`` (..., n) may carry
+    leading batch axes: each instance is then equilibrated on its own (the
+    fused inner-QP solver's per-instance problems), and ``d``, ``e``, ``c``
+    carry the same axes.
     """
     kw = dict(dtype=P.dtype, device=P.device)
-    d = torch.ones((P.shape[0],), **kw)
-    e = torch.ones((A.shape[0],), **kw)
-    c = torch.ones((), **kw)
+    lead = P.shape[:-2]
+    d = torch.ones(lead + (P.shape[-1],), **kw)
+    e = torch.ones(lead + (A.shape[-2],), **kw)
+    c = torch.ones(lead, **kw)
     q = q_ref
 
     def limit(norm):
@@ -119,18 +125,18 @@ def _ruiz_equilibration(P, A, q_ref, iters: int):
 
     for _ in range(iters):
         # column inf-norms of the stacked [[P, A'], [A, 0]]
-        col_norm_x = torch.maximum(_inf_norm(P, dim=0), _inf_norm(A, dim=0))
-        col_norm_y = _inf_norm(A, dim=1)
+        col_norm_x = torch.maximum(_inf_norm(P, dim=-2), _inf_norm(A, dim=-2))
+        col_norm_y = _inf_norm(A, dim=-1)
         dd = 1.0 / torch.sqrt(limit(col_norm_x))
         ee = 1.0 / torch.sqrt(limit(col_norm_y))
-        P = P * dd[None, :] * dd[:, None]
-        A = A * ee[:, None] * dd[None, :]
+        P = P * dd[..., None, :] * dd[..., :, None]
+        A = A * ee[..., :, None] * dd[..., None, :]
         q = q * dd
         # cost normalization (OSQP: gamma = 1/max(mean colnorm P, ||q||inf))
-        mean_col_p = torch.mean(_inf_norm(P, dim=0))
+        mean_col_p = torch.mean(_inf_norm(P, dim=-2), dim=-1)
         gamma = 1.0 / limit(torch.maximum(mean_col_p, _inf_norm(q)))
-        P = P * gamma
-        q = q * gamma
+        P = P * gamma[..., None, None]
+        q = q * gamma[..., None]
         d, e, c = d * dd, e * ee, c * gamma
     return d, e, c
 

@@ -17,11 +17,13 @@ over; the kernel gives each matrix one warp, which keeps it in shared
 memory and works on its rows (factorization) and columns (triangular
 solves) in parallel.  It takes k <= 64 (:func:`kernel_supported`); the
 blocked Schur recursion the JAX package uses past its own gate is not
-ported yet.
+ported yet, so a larger batched system on the card raises.
 
 :func:`spd_inverse` and :func:`spd_solve` are batch-first: an unbatched
 (n, n) matrix uses ``torch.linalg.cholesky`` (XLA's Cholesky in the JAX
-package), a batched one routes to :func:`chol_inverse`.
+package), a batched one routes to :func:`chol_inverse`.  Their callers are
+the SQP's second-order correction (``ops/sqp.py``, k = me) and the float32
+interior point (``ops/pdip.py``, k = nz + 1 and k = me).
 """
 
 from __future__ import annotations
@@ -84,11 +86,21 @@ def chol_inverse(C):
 chol_inverse.launches = 0
 
 
+def _batched_inverse(M):
+    if M.device.type == "cuda" and not kernel_supported(M.shape[-1]):
+        raise NotImplementedError(
+            f"batched SPD inverse of k={M.shape[-1]} > {MAX_K} on the card: the "
+            "blocked Schur recursion of libmpc_tpu/ops/batched_linalg.py:125 is "
+            "not ported yet (ROADMAP.md queue 1: K2's blocked recursion)"
+        )
+    return chol_inverse(M)
+
+
 def spd_inverse(M):
     """Explicit inverse of an SPD matrix (n, n), or of a batch (B, k, k)."""
     if M.dim() == 2:
         return torch.cholesky_inverse(torch.linalg.cholesky(M))
-    return chol_inverse(M)
+    return _batched_inverse(M)
 
 
 def spd_solve(M, rhs):
@@ -97,4 +109,4 @@ def spd_solve(M, rhs):
     if M.dim() == 2:
         L = torch.linalg.cholesky(M)
         return torch.cholesky_solve(rhs[:, None], L)[:, 0]
-    return torch.einsum("bij,bj->bi", chol_inverse(M), rhs.to(M.dtype)).to(rhs.dtype)
+    return torch.einsum("bij,bj->bi", _batched_inverse(M), rhs.to(M.dtype)).to(rhs.dtype)

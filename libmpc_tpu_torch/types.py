@@ -39,6 +39,24 @@ def set_default_dtype(dtype: torch.dtype) -> None:
     _default_dtype = dtype
 
 
+def default_device() -> torch.device:
+    """Device of controllers and records built without an explicit one: the
+    CUDA card.  The port runs on the card unless the caller asks for the CPU
+    (``device="cpu"``); it never gives way to the CPU on its own."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "libmpc_tpu_torch runs on a CUDA device by default and "
+            "torch.cuda.is_available() is False: no CUDA card was found; "
+            'pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; None means :func:`default_device`."""
+    return default_device() if device is None else torch.device(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class HorizonSlice:
     """Subset ``[start, end)`` of the horizon (reference: include/mpc/Types.hpp:57-82).
@@ -215,8 +233,11 @@ class LParameters(Parameters):
 class NLParameters(Parameters):
     """SQP parameters (reference: include/mpc/Types.hpp:121-140).
 
-    Plain data in this port: the NLMPC solver is not ported yet, so the
-    engines and measurements named below are the JAX package's.
+    The field names, defaults and the measurements quoted in the comments
+    are the JAX package's (taken on a TPU).  In this port ``inner_qp="fused"``
+    is the hand-written CUDA kernel of ``ops/qp_inner_fused.py`` (float32;
+    float64 solves use ``"pdip"``), and ``"admm"`` and ``"riccati"`` raise
+    ``NotImplementedError`` until they are ported.
 
     ``hessian_reg`` (TPU-native extension) selects the curvature model of
     the QP subproblem:
@@ -354,6 +375,7 @@ class OptSequence:
 
 def zero_result(nu: int, dtype=None, batch: tuple = (), device=None) -> Result:
     dtype = dtype or default_dtype()
+    device = resolve_device(device)
     return Result(
         cmd=torch.zeros(batch + (nu,), dtype=dtype, device=device),
         cost=torch.zeros(batch, dtype=dtype, device=device),
@@ -367,6 +389,7 @@ def zero_result(nu: int, dtype=None, batch: tuple = (), device=None) -> Result:
 def zero_sequence(nx: int, ny: int, nu: int, ph: int, dtype=None,
                   batch: tuple = (), device=None) -> OptSequence:
     dtype = dtype or default_dtype()
+    device = resolve_device(device)
     return OptSequence(
         state=torch.zeros(batch + (ph + 1, nx), dtype=dtype, device=device),
         output=torch.zeros(batch + (ph + 1, ny), dtype=dtype, device=device),

@@ -70,3 +70,16 @@ def test_kernel_gate_and_non_cpu_devices_never_reach_the_twin():
     with pytest.raises(ValueError, match="unsupported device"):
         tbl.chol_inverse(torch.empty((2, 24, 24), device="meta"))
     assert tbl.chol_inverse.launches == launches
+
+
+def test_batched_routes_past_the_kernel_gate_run_the_twin_on_cpu():
+    """k > 64 has no kernel (the blocked recursion is not ported): CPU
+    tensors run the twin at any k; the refusal on the card is in
+    tests/test_torch_cuda.py."""
+    Mb = torch.as_tensor(_spd_batch(3, 70, seed=8, dtype=np.float64))
+    rb = torch.ones((3, 70), dtype=torch.float64)
+    np.testing.assert_allclose(tbl.spd_inverse(Mb).numpy(), np.linalg.inv(Mb.numpy()),
+                               atol=1e-11)
+    np.testing.assert_allclose(tbl.spd_solve(Mb, rb).numpy(),
+                               np.linalg.solve(Mb.numpy(), rb.numpy()[..., None])[..., 0],
+                               atol=1e-11)

@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain twins, on the card.
+"""The three CUDA kernels against their plain twins, on the card.
 
 These tests need a CUDA device and nvcc; without them they skip.  They
 import neither JAX nor the JAX package, so on a machine without JAX run
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from libmpc_tpu_torch.ops import admm_fused, batched_linalg
+from libmpc_tpu_torch.ops import admm_fused, batched_linalg, qp_inner_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +84,101 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         batched_linalg.chol_inverse(torch.eye(65, device=cuda).expand(2, 65, 65).contiguous())
     with pytest.raises(TypeError):
         batched_linalg.chol_inverse(torch.eye(4, dtype=torch.float16, device=cuda)[None])
+
+
+def _k3_data(B, dtype, device, seed=0, n=26, me=20, mi=11):
+    """Feasible QPs of the SQP's shape: equality rows, one-sided rows with
+    -inf, identity box rows of which some are infinite; a mild equality
+    penalty so that float32 rounding is not amplified."""
+    rng = np.random.default_rng(seed)
+    m = me + mi + n
+    Q = rng.normal(size=(B, n, n))
+    P = Q @ Q.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+    Aei = rng.normal(size=(B, me + mi, n)) / np.sqrt(n)
+    A = np.concatenate([Aei, np.broadcast_to(np.eye(n), (B, n, n))], axis=1)
+    v = np.einsum("brn,bn->br", Aei, rng.uniform(-0.4, 0.4, size=(B, n)))
+    lo, hi = np.full((B, n), -0.5), np.full((B, n), 0.5)
+    lo[:, ::3], hi[:, 1::3] = -1e20, 1e20
+    l = np.concatenate([v[:, :me], np.full((B, mi), -np.inf), lo], axis=1)
+    u = np.concatenate([v[:, :me], v[:, me:] + 0.2 * np.abs(rng.normal(size=(B, mi))), hi],
+                       axis=1)
+    loose = (l <= -1e18) & (u >= 1e18)
+    rho = np.where(loose, 1e-6, np.where(np.arange(m) < me, 1.0, 0.1))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return [t(P), t(A), t(0.2 * rng.normal(size=(B, n))), t(l), t(u), t(rho)]
+
+
+_K3_KW = dict(sigma=1e-5, alpha=1.6, max_iter=300, check_every=25)
+
+
+@pytest.mark.parametrize("B", [64, 37])
+def test_qp_inner_kernel_matches_twin_float64(cuda, B):
+    """float64 at tight tolerances: ``done`` and the iteration count equal on
+    every lane (ragged batch included), x/y/z within 1e-10 of scale."""
+    data = _k3_data(B, torch.float64, cuda)
+    x0 = torch.zeros((B, 26), dtype=torch.float64, device=cuda)
+    y0 = torch.zeros((B, 57), dtype=torch.float64, device=cuda)
+    kw = dict(_K3_KW, eps_abs=1e-9, eps_rel=1e-9, max_iter=2000)
+    launches = qp_inner_fused.solve_batched.launches
+    got = qp_inner_fused.solve_batched(*data, x0, y0, **kw)
+    want = qp_inner_fused.plain_solve_batched(*data, x0, y0, **kw)
+    torch.cuda.synchronize()
+    assert qp_inner_fused.solve_batched.launches == launches + 1
+    assert torch.equal(got[4], want[4]) and got[4].all()
+    assert torch.equal(got[3], want[3]) and got[3].dtype == torch.int32
+    for g, w in zip(got[:3], want[:3]):
+        assert (g - w).abs().max().item() <= 1e-10 * max(1.0, w.abs().max().item())
+
+
+def test_qp_inner_kernel_matches_twin_float32(cuda):
+    """float32 at the path's tolerance (5e-6): x and z within 1e-3 of scale
+    on every lane; ``done`` is compared as a fraction because float32 lanes
+    at the threshold may stop a check block apart."""
+    B = 64
+    data = _k3_data(B, torch.float32, cuda, seed=1)
+    x0 = torch.zeros((B, 26), device=cuda)
+    y0 = torch.zeros((B, 57), device=cuda)
+    kw = dict(_K3_KW, eps_abs=5e-6, eps_rel=5e-6)
+    got = qp_inner_fused.solve_batched(*data, x0, y0, **kw)
+    want = qp_inner_fused.plain_solve_batched(*data, x0, y0, **kw)
+    torch.cuda.synchronize()
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        assert (g - w).abs().max().item() <= 1e-3 * max(1.0, w.abs().max().item())
+    assert (got[4] == want[4]).float().mean().item() >= 0.75
+
+
+def test_qp_inner_warm_start_at_the_optimum_is_frozen_after_one_block(cuda):
+    """A lane whose warm start is already optimal converges at the first
+    check: 25 iterations, ``done``, and the solution unmoved."""
+    B = 8
+    data = _k3_data(B, torch.float64, cuda, seed=2)
+    x0 = torch.zeros((B, 26), dtype=torch.float64, device=cuda)
+    y0 = torch.zeros((B, 57), dtype=torch.float64, device=cuda)
+    kw = dict(_K3_KW, eps_abs=1e-9, eps_rel=1e-9, max_iter=4000)
+    x, y, *_ = qp_inner_fused.solve_batched(*data, x0, y0, **kw)
+    loose = dict(kw, eps_abs=1e-6, eps_rel=1e-6)
+    x2, y2, z2, iters, done, pri, dua = qp_inner_fused.solve_batched(*data, x, y, **loose)
+    torch.cuda.synchronize()
+    assert done.all() and (iters == 25).all()
+    assert (x2 - x).abs().max().item() <= 1e-6
+
+
+def test_qp_inner_refuses_a_size_past_its_gate(cuda):
+    n, m = 301, 842
+    assert not qp_inner_fused.supported(n, m)
+    z = lambda *s: torch.zeros(s, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        qp_inner_fused.solve_batched(
+            torch.eye(n, device=cuda)[None], z(1, m, n), z(1, n), z(1, m), z(1, m),
+            torch.ones((1, m), device=cuda), z(1, n), z(1, m))
+    with pytest.raises(TypeError):
+        qp_inner_fused.solve_batched(*(t.half() for t in _k3_data(2, torch.float32, cuda)),
+                                     z(2, 26).half(), z(2, 57).half())
+
+
+def test_batched_spd_routes_refuse_k_past_the_kernel_gate(cuda):
+    M = torch.eye(70, device=cuda).expand(2, 70, 70).contiguous()
+    with pytest.raises(NotImplementedError, match="blocked Schur recursion"):
+        batched_linalg.spd_inverse(M)
+    with pytest.raises(NotImplementedError, match="blocked Schur recursion"):
+        batched_linalg.spd_solve(M, torch.ones((2, 70), device=cuda))

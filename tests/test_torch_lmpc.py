@@ -35,7 +35,7 @@ def quadrotor(dtype=torch.float64, params=None):
     setters."""
     inf = lt.inf
     Ad, Bd, Cd = quadrotor_model()
-    c = lt.LMPC(12, 4, 4, 12, 10, 10, dtype=dtype)
+    c = lt.LMPC(12, 4, 4, 12, 10, 10, dtype=dtype, device="cpu")
     assert c.set_state_space_model(Ad, Bd, Cd)
     assert c.set_disturbances(np.zeros((12, 4)), np.zeros((12, 4)))
     assert c.set_objective_weights(
@@ -160,7 +160,7 @@ def test_infeasible_lane_reports_nan_and_others_solve():
 
 
 def test_setter_contracts_and_warm_start_roundtrip():
-    c = lt.LMPC(5, 3, 3, 7, 7, 5, dtype=torch.float64)
+    c = lt.LMPC(5, 3, 3, 7, 7, 5, dtype=torch.float64, device="cpu")
     with pytest.raises(RuntimeError):
         c.set_discretization_sampling_time(0.1)
     with pytest.raises(ValueError):

@@ -138,7 +138,7 @@ def test_unpack_shift_and_output_match_jax(dims):
 def test_init_problem_matches_jax():
     dims = (5, 3, 3, 7, 7, 5)
     jp = jqp.init_problem(JLDims(*dims), jnp.float64)
-    tp = tqp.init_problem(LDims(*dims), torch.float64)
+    tp = tqp.init_problem(LDims(*dims), torch.float64, "cpu")
     for f in dataclasses.fields(tp):
         _close(getattr(tp, f.name), getattr(jp, f.name), 0.0)
 

@@ -1,0 +1,165 @@
+"""The port's batch-first SQP (``ops/sqp.py``) against the JAX package's
+per-instance ``sqp_solve`` under ``vmap``, on a small Van der Pol NLP with
+inputs made with numpy from a seed."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libmpc_tpu.dims import NLDims as JDims
+from libmpc_tpu.nlmpc import problem as jnlp
+from libmpc_tpu.ops import sqp as jsqp
+from libmpc_tpu.types import NLParameters as JParams
+from libmpc_tpu_torch.dims import NLDims
+from libmpc_tpu_torch.nlmpc import problem as tnlp
+from libmpc_tpu_torch.ops import _host
+from libmpc_tpu_torch.ops import sqp as tsqp
+from libmpc_tpu_torch.types import NLParameters
+
+PH, CH = 6, 3
+DIMS, JDIMS = NLDims(2, 1, 2, PH, CH, PH + 1, 0), JDims(2, 1, 2, PH, CH, PH + 1, 0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _torch_nlp():
+    fns = tnlp.NLFunctions(
+        state_fn=lambda x, u, k: torch.stack(
+            [(1.0 - x[1] * x[1]) * x[0] - x[1] + u[0], x[0]]),
+        objective_fn=lambda X, Y, U, e: torch.sum(X**2) + torch.sum(U**2),
+        ineq_fn=lambda X, Y, U, e: U[:, 0] - 0.5, continuous=True, ts=0.1)
+    one = lambda k: torch.ones(k, dtype=torch.float64)
+    a = (DIMS, fns, one(2), one(1))
+    return (lambda z, x0: tnlp.objective(*a, z, x0),
+            lambda z, x0: tnlp.state_defects(*a, z, x0),
+            lambda z, x0: tnlp.user_ineq(*a, z, x0))
+
+
+def _jax_solve(z0, x0, lb, ub, params):
+    fns = jnlp.NLFunctions(
+        state_fn=lambda x, u, k: jnp.stack(
+            [(1.0 - x[1] * x[1]) * x[0] - x[1] + u[0], x[0]]),
+        objective_fn=lambda X, Y, U, e: jnp.sum(X**2) + jnp.sum(U**2),
+        ineq_fn=lambda X, Y, U, e: U[:, 0] - 0.5, continuous=True, ts=0.1)
+    a = (JDIMS, fns, jnp.ones(2), jnp.ones(1))
+
+    def one(z, x):
+        return jsqp.sqp_solve(
+            lambda zz: jnlp.objective(*a, zz, x),
+            lambda zz: jnlp.state_defects(*a, zz, x),
+            lambda zz: jnlp.user_ineq(*a, zz, x),
+            z, jnp.asarray(lb), jnp.asarray(ub), params)
+
+    return jax.vmap(one)(jnp.asarray(z0), jnp.asarray(x0))
+
+
+def _inputs(B, seed=0):
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-1.0, 1.0, size=(B, 2))
+    z0 = np.concatenate([np.tile(x0, (1, PH)), np.zeros((B, CH + 1))], axis=1)
+    lb = np.full(DIMS.nz, -np.inf)
+    ub = np.full(DIMS.nz, np.inf)
+    lb[-1] = ub[-1] = 0.0
+    return z0, x0, lb, ub
+
+
+def _torch_solve(z0, x0, lb, ub, params, **kw):
+    f, ceq, cin = _torch_nlp()
+    T = torch.as_tensor
+    return tsqp.sqp_solve(f, ceq, cin, T(z0), T(lb), T(ub), params,
+                          fn_args=(T(x0),), fn_in_dims=(0,), **kw)
+
+
+@pytest.mark.parametrize("mode,inner", [
+    ("gershgorin", "fused"), ("eigh", "pdip"), ("power", "pdip"),
+    ("gauss_newton", "pdip"), ("bfgs", "pdip")])
+def test_sqp_matches_jax_float64(mode, inner):
+    """float64 (a fused request runs the interior-point engine): per-lane
+    statuses and SQP iteration counts equal, z and the objective at 1e-9."""
+    z0, x0, lb, ub = _inputs(3)
+    kw = dict(maximum_iteration=60, hessian_reg=mode, inner_qp=inner)
+    j = _jax_solve(z0, x0, lb, ub, JParams(**kw))
+    t = _torch_solve(z0, x0, lb, ub, NLParameters(**kw))
+    np.testing.assert_array_equal(t.status.numpy(), np.asarray(j.status))
+    np.testing.assert_array_equal(t.iters.numpy(), np.asarray(j.iters))
+    assert t.status.dtype == torch.int32 and (t.status > 0).all()
+    np.testing.assert_allclose(t.z.numpy(), np.asarray(j.z), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(t.obj.numpy(), np.asarray(j.obj), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(t.kkt_res.numpy(), np.asarray(j.kkt_res), rtol=0, atol=1e-9)
+
+
+def test_sqp_tolerances_and_budget_statuses_match_jax():
+    """xtol/ftol exits and the iteration budget (the time_limit contract):
+    NLOPT_XTOL/FTOL_REACHED and NLOPT_MAXTIME_REACHED as the JAX package."""
+    z0, x0, lb, ub = _inputs(3, seed=1)
+    kw = dict(maximum_iteration=60, relative_ftol=1e-3, absolute_xtol=1e-3)
+    j = _jax_solve(z0, x0, lb, ub, JParams(**kw))
+    t = _torch_solve(z0, x0, lb, ub, NLParameters(**kw))
+    np.testing.assert_array_equal(t.status.numpy(), np.asarray(j.status))
+    np.testing.assert_array_equal(t.iters.numpy(), np.asarray(j.iters))
+    assert set(t.status.tolist()) & {tsqp.NLOPT_FTOL_REACHED, tsqp.NLOPT_XTOL_REACHED}
+    t = _torch_solve(z0, x0, lb, ub, NLParameters(maximum_iteration=60), iter_budget=2)
+    assert (t.status == tsqp.NLOPT_MAXTIME_REACHED).all() and (t.iters == 2).all()
+    t = _torch_solve(z0, x0, lb, ub, NLParameters(maximum_iteration=2))
+    assert (t.status == tsqp.NLOPT_MAXEVAL_REACHED).all()
+
+
+def test_chunked_run_equals_one_run():
+    """``carry_in``/``it_hi``/``return_carry`` partition the same per-lane
+    iteration sequence: begin, chunks of 2 and finish give bitwise the
+    one-shot solution."""
+    z0, x0, lb, ub = _inputs(4, seed=2)
+    params = NLParameters(maximum_iteration=60)
+    whole = _torch_solve(z0, x0, lb, ub, params)
+    carry = _torch_solve(z0, x0, lb, ub, params, it_hi=0, return_carry=True)
+    assert isinstance(carry, tsqp.Carry) and (carry.it == 0).all()
+    for hi in range(2, 62, 2):
+        carry = _torch_solve(z0, x0, lb, ub, params, carry_in=carry, it_hi=hi,
+                             return_carry=True)
+    assert (carry.it <= 60).all()
+    parts = _torch_solve(z0, x0, lb, ub, params, carry_in=carry, it_hi=0)
+    for a, b in zip(whole, parts):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(inner_qp="admm"), "inner_qp='admm'"),
+    (dict(inner_qp="riccati"), "K4/K5"),
+])
+def test_engines_not_ported_raise(kw, match):
+    z0, x0, lb, ub = _inputs(2)
+    with pytest.raises(NotImplementedError, match=match):
+        _torch_solve(z0, x0, lb, ub, NLParameters(**kw))
+
+
+def test_fused_request_past_the_gate_raises_and_float64_routes_to_pdip():
+    par = NLParameters(inner_qp="fused")
+    assert tsqp.inner_engine(par, torch.float32, 26, 57) == "fused"
+    assert tsqp.inner_engine(par, torch.float64, 26, 57) == "pdip"
+    with pytest.raises(NotImplementedError, match="shared-memory gate"):
+        tsqp.inner_engine(par, torch.float32, 301, 842)
+    with pytest.raises(ValueError):
+        tsqp.inner_engine(dataclasses.replace(par, inner_qp="simplex"), torch.float32, 26, 57)
+    z0, x0, lb, ub = _inputs(2)
+    with pytest.raises(ValueError, match="hessian_reg"):
+        _torch_solve(z0, x0, lb, ub, NLParameters(hessian_reg="newton"))
+
+
+def test_host_reads_are_counted():
+    """Every loop test of the host-driven solver goes through ``_host.flag``:
+    one read per SQP iteration plus one per line-search trial and per
+    interior-point iteration."""
+    z0, x0, lb, ub = _inputs(2)
+    _host.flag.reads = 0
+    t = _torch_solve(z0, x0, lb, ub, NLParameters(maximum_iteration=60))
+    assert _host.flag.reads > int(t.iters.max())

@@ -33,7 +33,7 @@ def test_result_and_sequence_fields_match():
         f.name for f in dataclasses.fields(jt.Result)]
     assert [f.name for f in dataclasses.fields(tt.OptSequence)] == [
         f.name for f in dataclasses.fields(jt.OptSequence)]
-    r = tt.zero_result(4, torch.float64, batch=(3,))
+    r = tt.zero_result(4, torch.float64, batch=(3,), device="cpu")
     assert r.cmd.shape == (3, 4) and r.status.dtype == torch.int32
     assert bool((r.status == int(tt.ResultStatus.UNKNOWN)).all())
 
