@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's two main paths after building the three hand-written CUDA
+Drives the port's three main paths after building the five hand-written CUDA
 kernels from ``libmpc_tpu_torch/csrc`` and holding each against its plain
 PyTorch twin on the card:
 
@@ -10,7 +10,12 @@ PyTorch twin on the card:
   size (B=16384 lanes, 16 closed-loop steps);
 * the batched Van der Pol NLMPC closed loop of examples/vanderpol_ex.cpp
   through ``libmpc_tpu_torch.NLMPC`` and ``nlmpc_rollout`` (B=4096 lanes, 16
-  steps, float32, ``inner_qp="fused"``, ``hessian_reg="gershgorin"``).
+  steps, float32, ``inner_qp="fused"``, ``hessian_reg="gershgorin"``);
+* the networked-oscillators NLMPC closed loop of
+  examples/networked_oscillators_ex.cpp (nx=12, nu=6, ph=20, ch=10, nz=301)
+  through ``nlmpc_rollout`` (B=1024 lanes, 8 steps, float32, the shipped
+  two-phase settings): its ``inner_qp="fused"`` request is past the fused
+  kernel's gate and runs the banded-KKT interior point.
 
 Phases, one line each (any failure raises and the script exits non-zero):
 
@@ -18,24 +23,38 @@ Phases, one line each (any failure raises and the script exits non-zero):
 2. build of the kernel library by nvcc for sm_90a
 3. K1 (fused ADMM iterations) against its twin, float32 and float64
 4. K2 (batched Cholesky inverse) against its twin, float32 and float64, at
-   the LMPC polish's shape and at the NLMPC path's shapes
+   the LMPC polish's shape, at the Van der Pol path's shapes and at the
+   oscillators' border shape (1024,8,8); its blocked recursion at
+   (256,302,302) and (256,240,240)
 5. K3 (whole inner-QP solve) against its twin, float64 and float32, ragged
    batch included
-6. LMPC main path, float32: the closed loop through K1 and K2, launch
+6. K4 (banded factorization) and K5 (banded solve) against their twins,
+   float64 and float32, at the oscillators' shape, on a ragged batch and on
+   a single-stage problem; float32 K4 and its twin both against float64 on
+   ill-conditioned blocks (the six-term construction of the reference's
+   test; real interior-point iterations of the oscillator path); K4, K2 and
+   K5 together against a dense solve
+7. LMPC main path, float32: the closed loop through K1 and K2, launch
    counts, status mix, success fraction; the unbatched float32 golden
-7. LMPC matched-state accuracy against the float64 closed-loop oracle
-8. LMPC float64 20-step golden trajectory on the card
-9. NLMPC main path, float32: the closed loop through K3 and K2, launch
-   counts, SQP and K3 iteration statistics, success fraction
-10. NLMPC matched-state accuracy against the float64 Van der Pol oracle
-11. NLMPC float64 20-step golden trajectory on the card (pdip and K2)
-12. times: kernels, twins and library calls with CUDA events, each kernel's
-    bound, steady-state and closed-loop solves/s of both paths
+8. LMPC matched-state accuracy against the float64 closed-loop oracle
+9. LMPC float64 20-step golden trajectory on the card
+10. NLMPC main path, float32: the closed loop through K3 and K2, launch
+    counts, SQP and K3 iteration statistics, success fraction
+11. NLMPC matched-state accuracy against the float64 Van der Pol oracle
+12. NLMPC float64 20-step golden trajectory on the card (the banded engine
+    in float64: K4, K5, K2)
+13. oscillator main path, float32: the closed loop through K4, K5 and K2,
+    launch counts, SQP and interior-point iteration statistics, rescued
+    lanes, success fraction at B=1024 and at B=256 and 512
+14. oscillator accuracy at matched states: float64 riccati against float64
+    pdip on the card, then float32 against that
+15. times: kernels, twins and library calls with CUDA events, each kernel's
+    bound, steady-state and closed-loop solves/s of the three paths
 
-``--phases a,b,...`` runs a subset (names: k1 k2 k3 lmpc nlmpc times),
-``--profile`` adds a ``torch.profiler`` breakdown of the NLMPC loop and
-``--sweep-k3`` times K3 for several warps per block; with no arguments every
-phase runs.  The second-to-last line is one JSON object
+``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
+times), ``--profile`` adds a ``torch.profiler`` breakdown of the two NLMPC
+loops (and the oscillator rollout's idle share from one traced window) and ``--sweep-k3`` times K3 for several warps per block; with no
+arguments every phase runs.  The second-to-last line is one JSON object
 describing each kernel; the last line is ``{"ok": true, "device": {...}}``
 (both only when every phase ran).
 
@@ -44,7 +63,8 @@ It needs one CUDA card and the CUDA toolkit (nvcc); it imports neither JAX
 nor the JAX package.  The quadrotor setup restates
 ``__graft_entry__.py:26-78`` and the closed-loop inputs and settings restate
 ``bench.py:268-300``; the Van der Pol setup, inputs and plant restate
-``bench.py:437-480`` (these files import JAX, so they are not imported).
+``bench.py:437-480`` and the oscillators' ``bench.py:562-620`` (these files
+import JAX, so they are not imported).
 """
 
 from __future__ import annotations
@@ -65,6 +85,12 @@ N_QP, M_QP = 216, 535  # quadrotor QP: nz, constraint rows (dims.py:43-79)
 B_NL, K_NL = 4096, 16  # Van der Pol closed loop (bench.py:459)
 N_NL, ME_NL, MI_NL = 26, 20, 11  # its inner QP: n = nz, m = me + mi + nz = 57
 M_NL = ME_NL + MI_NL + N_NL
+# networked oscillators (examples/networked_oscillators_ex.cpp; bench.py:562-627)
+B_OSC, K_OSC = 1024, 8
+PH_O, CH_O, NX_O, NU_O = 20, 10, 12, 6
+BSP_O, BS_O, W_O = NX_O + NU_O, 2 * NX_O + NU_O, NU_O + 2  # stage block 30 (18 primal), border 8
+NZ_O, ME_O, MI_O = PH_O * NX_O + CH_O * NU_O + 1, PH_O * NX_O, (PH_O + 1) * NU_O
+OSC_JAX_SUCCESS = {256: 0.999, 512: 0.9966, 1024: 0.9973}  # the JAX package's float32 records
 # settings of the fused inner-QP solver on the SQP's path (ops/sqp.py)
 K3_KW = dict(sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6, max_iter=300,
              check_every=25)
@@ -79,9 +105,13 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
+    """One line per phase: its fields, and the seconds since the script began."""
     body = " ".join(f"{k}={v}" for k, v in fields.items())
-    print(f"[{name}] {body}", flush=True)
+    print(f"[{name}] {body} t={time.perf_counter() - T_START:.0f}s", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -364,7 +394,7 @@ def run_closed_loop(torch, c, x0, noise, Ad_t, Bd_t):
     return steps
 
 
-def phase_main(torch, lt, admm_fused, batched_linalg, qpf):
+def phase_main(torch, lt, mods):
     dev = "cuda"
     f32 = torch.float32
     Ad, Bd = quadrotor_model()
@@ -375,14 +405,12 @@ def phase_main(torch, lt, admm_fused, batched_linalg, qpf):
     noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
     c = quadrotor_controller(lt, f32, dev, closed_loop_params(lt))
 
-    reset_counts(admm_fused, batched_linalg, qpf)
+    reset_counts(*mods)
     t0 = time.perf_counter()
     steps = run_closed_loop(torch, c, x0, noise, Ad_t, Bd_t)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"admm_fused": admm_fused.fused_iterations.launches,
-                "chol_inverse": batched_linalg.chol_inverse.launches,
-                "qp_inner": qpf.solve_batched.launches}
+    launches = read_counts(*mods)
 
     status = torch.stack([s[0] for s in steps], 1).cpu().numpy()  # (B, K)
     solver = torch.stack([s[1] for s in steps], 1).cpu().numpy()
@@ -649,18 +677,29 @@ def hist25(iters):
 
 
 def phase_k2_nlmpc(torch, batched_linalg):
-    """K2 at the shapes the NLMPC path gives it: the second-order-correction
-    system (me = 20) and the interior point's barrier system (nz + 1 = 27)."""
-    for B, k, dtype, tol, seed in ((B_NL, ME_NL, torch.float32, 1e-4, 3),
-                                   (1024, N_NL + 1, torch.float64, 1e-10, 4)):
+    """K2 at the shapes the NLMPC paths give it: the second-order-correction
+    system (me = 20) and the interior point's barrier system (nz + 1 = 27) of
+    Van der Pol, and the oscillators' border Schur complement (w = 8) at the
+    main path's batch, in both types, and at a rescue-sized ragged batch.
+    Returns the largest float32 error at the oscillators' batch."""
+    res = {}
+    f32, f64 = torch.float32, torch.float64
+    for B, k, dtype, tol, seed in ((B_NL, ME_NL, f32, 1e-4, 3), (1024, N_NL + 1, f64, 1e-10, 4),
+                                   (B_OSC, W_O, f32, 1e-4, 5), (B_OSC, W_O, f64, 1e-10, 5),
+                                   (37, W_O, f32, 1e-4, 6)):
         C = torch.as_tensor(spd_batch(B, k, seed=seed), dtype=dtype, device="cuda")
         inv_k = batched_linalg.chol_inverse(C)
         inv_t = batched_linalg.chol_inverse_plain(C)
         torch.cuda.synchronize()
-        rel = ((inv_k - inv_t).abs().max() / inv_t.abs().max()).item()
+        absmax = (inv_k - inv_t).abs().max().item()
+        rel = absmax / inv_t.abs().max().item()
         name = str(dtype).split(".")[-1]
-        phase("K2-nlmpc", dtype=name, shape=f"({B},{k},{k})", rel_err=f"{rel:.3e}", tol=tol)
+        phase("K2-nlmpc", dtype=name, shape=f"({B},{k},{k})", rel_err=f"{rel:.3e}",
+              max_abs_err=f"{absmax:.3e}", tol=tol)
         require(rel <= tol, f"K2 {name} ({B},{k},{k}) within {tol} of its twin")
+        if (B, k, dtype) == (B_OSC, W_O, f32):
+            res["osc_float32"] = absmax
+    return res
 
 
 def k3_case(torch, qpf, data, dtype, **kw):
@@ -728,20 +767,32 @@ def phase_k3(torch, qpf):
     return res
 
 
-def reset_counts(admm_fused, batched_linalg, qpf):
-    admm_fused.fused_iterations.launches = 0
-    batched_linalg.chol_inverse.launches = 0
-    qpf.solve_batched.launches = 0
+def _wrappers(admm_fused, batched_linalg, qpf, ts):
+    """The five launch-counting wrappers, by kernel name."""
+    return {"admm_fused": admm_fused.fused_iterations,
+            "chol_inverse": batched_linalg.chol_inverse,
+            "qp_inner": qpf.solve_batched,
+            "traj_factor": ts.batched_factor,
+            "traj_sweep": ts.batched_sweep_solve}
 
 
-def phase_main_nlmpc(torch, lt, admm_fused, batched_linalg, qpf, host):
+def reset_counts(*mods):
+    for fn in _wrappers(*mods).values():
+        fn.launches = 0
+
+
+def read_counts(*mods):
+    return {name: fn.launches for name, fn in _wrappers(*mods).items()}
+
+
+def phase_main_nlmpc(torch, lt, qpf, host, mods):
     dev, f32 = "cuda", torch.float32
     x0_h, noise_h = vdp_closed_loop_inputs(B_NL, K_NL)
     x0 = torch.as_tensor(x0_h, dtype=f32, device=dev)
     noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
     c = vdp_controller(lt, f32, dev, vdp_params(lt))
 
-    reset_counts(admm_fused, batched_linalg, qpf)
+    reset_counts(*mods)
     qpf.solve_batched.trace = []
     host.flag.reads = 0
     t0 = time.perf_counter()
@@ -749,9 +800,7 @@ def phase_main_nlmpc(torch, lt, admm_fused, batched_linalg, qpf, host):
                          torch.zeros((B_NL, 1), dtype=f32, device=dev), K_NL)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"qp_inner": qpf.solve_batched.launches,
-                "chol_inverse": batched_linalg.chol_inverse.launches,
-                "admm_fused": admm_fused.fused_iterations.launches}
+    launches = read_counts(*mods)
     reads = host.flag.reads
     trace, qpf.solve_batched.trace = qpf.solve_batched.trace, None
     k3_iters = torch.cat([it for it, _ in trace]).cpu().numpy()
@@ -785,7 +834,7 @@ def phase_main_nlmpc(torch, lt, admm_fused, batched_linalg, qpf, host):
     require(launches["chol_inverse"] > 0, "NLMPC main path launched K2")
     require(frac >= 0.999, f"NLMPC success fraction {frac} >= 0.999")
     require(cmd_max <= 0.5 + 1e-5, f"commands never above 0.5 + 1e-5 (max {cmd_max})")
-    return launches
+    return launches, wall
 
 
 def phase_matched_nlmpc(torch, lt):
@@ -809,25 +858,28 @@ def phase_matched_nlmpc(torch, lt):
     require(worst <= 1e-2, f"NLMPC matched-state warm max {worst} <= 1e-2")
 
 
-def phase_golden_f64_nlmpc(torch, lt, batched_linalg, qpf):
+def phase_golden_f64_nlmpc(torch, lt, mods):
     """tests/test_golden_trajectories.py::test_vdp_20_step_commands on the
-    card: float64, so the fused request runs the interior-point engine and
-    the second-order correction goes through K2."""
+    card: float64, so the fused request runs the banded-KKT interior point
+    (K4, K5 and K2 in float64), as it does in the JAX package, and the
+    second-order correction goes through K2."""
     golden = np.load(ROOT / "tests" / "golden_trajectories.npz")["vdp_cmds"]
     c = vdp_controller(lt, torch.float64, "cuda", lt.NLParameters(maximum_iteration=100))
-    k2, k3 = batched_linalg.chol_inverse.launches, qpf.solve_batched.launches
+    before = read_counts(*mods)
     x, u = np.array([0.0, 1.0]), np.zeros(1)
     worst = 0.0
     for k in range(20):
         u = c.optimize(x, u).cmd.cpu().numpy()
         worst = max(worst, float(np.abs(u - golden[k]).max()))
         x = x + 0.1 * np.array([(1.0 - x[1] ** 2) * x[0] - x[1] + u[0], x[0]])
-    k2 = batched_linalg.chol_inverse.launches - k2
-    k3 = qpf.solve_batched.launches - k3
+    n = {k: v - before[k] for k, v in read_counts(*mods).items()}
     phase("golden-f64-nlmpc", steps=20, max_err=f"{worst:.3e}", tol=1e-6,
-          launches_chol_inverse=k2, launches_qp_inner=k3)
+          launches_traj_factor=n["traj_factor"], launches_traj_sweep=n["traj_sweep"],
+          launches_chol_inverse=n["chol_inverse"], launches_qp_inner=n["qp_inner"])
     require(worst <= 1e-6, "float64 20-step Van der Pol golden within 1e-6")
-    require(k2 > 0 and k3 == 0, "float64 golden ran through pdip and K2, not K3")
+    require(n["traj_factor"] > 0 and n["traj_sweep"] > 0 and n["chol_inverse"] > 0
+            and n["qp_inner"] == 0,
+            "float64 golden ran through the banded engine (K4, K5, K2), not K3")
 
 
 def k3_bound_ms(iters, n, m):
@@ -848,7 +900,7 @@ def k3_bound_ms(iters, n, m):
     return _bound(words, flops)
 
 
-def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card):
+def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, main_wall=None):
     dev, f32 = "cuda", torch.float32
     # K3 and its twin on the scaled problem (the kernel's own inputs), cold
     t = [torch.as_tensor(a, dtype=f32, device=dev) for a in vdp_qps(B_NL, 0)]
@@ -887,11 +939,11 @@ def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card):
         r = cc.optimize(xs0, u0 if not times else r.cmd)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0, cc._last_iters.float().mean().item()))
-    # closed loop, a few repeats: the steady state of a host-driven loop moves
-    # between calls, so the spread is printed
+    # closed loop, two runs (the main path's, where it ran, is the first): a
+    # host-driven loop moves more between calls than within one
     noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
-    rates = []
-    for _ in range(3):
+    rates = [B_NL * K_NL / main_wall] if main_wall else []
+    while len(rates) < 2:
         cl = vdp_controller(lt, f32, dev, vdp_params(lt))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -904,23 +956,47 @@ def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card):
           warm_sqp_iters_mean="/".join(f"{i:.2f}" for _, i in times[1:]),
           closed_loop_steps=K_NL,
           closed_loop_solves_per_s="/".join(f"{r_:.1f}" for r_ in rates),
-          closed_loop_median=f"{float(np.median(rates)):.1f}")
+          closed_loop_mean=f"{float(np.mean(rates)):.1f}",
+          first_is_the_main_path_run=main_wall is not None)
     return {"qp_inner": (k3_ms, k3_plain, k3_bound, k3_by, None),
             "k2_nlmpc": (k2_ms, k2_plain, k2_lib)}
 
 
-def phase_profile_nlmpc(torch, lt, host):
-    """``--profile``: device time by kernel family over four warm steps of
-    the Van der Pol loop (CUDA kernel rows of ``torch.profiler`` only)."""
+KERNEL_FAMILIES = (("qp_inner", "K3 qp_inner"), ("chol_inverse", "K2 chol_inverse"),
+                   ("traj_factor", "K4 traj_factor"), ("traj_sweep", "K5 traj_sweep"))
+
+
+def device_ms_by_family(prof):
+    """Device milliseconds by kernel family and the number of launches, from
+    the CUDA kernel rows of a ``torch.profiler`` run (operator rows would
+    count the same time twice)."""
+    fam = {label: 0.0 for _, label in KERNEL_FAMILIES}
+    fam.update({"matmul (cuBLAS)": 0.0, "reductions": 0.0, "elementwise and other": 0.0})
+    count = 0
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            ms = ev.self_device_time_total / 1e3
+            count += ev.count
+            key = ev.key.lower()
+            own = [label for word, label in KERNEL_FAMILIES if word in key]
+            if own:
+                fam[own[0]] += ms
+            elif "gemm" in key or "gemv" in key or "cutlass" in key or "bmm" in key:
+                fam["matmul (cuBLAS)"] += ms
+            elif "reduce" in key:
+                fam["reductions"] += ms
+            else:
+                fam["elementwise and other"] += ms
+    return fam, count
+
+
+def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
+    """Device time by kernel family over the cold step and over
+    ``warm_steps`` warm steps of a closed loop driven through ``optimize``
+    (CUDA kernel rows of ``torch.profiler`` only), then the peak memory of
+    two more steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev, f32 = "cuda", torch.float32
-    x0_h, noise_h = vdp_closed_loop_inputs(B_NL, K_NL)
-    x = torch.as_tensor(x0_h, dtype=f32, device=dev)
-    u = torch.zeros((B_NL, 1), dtype=f32, device=dev)
-    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
-    plant = vdp_plant(torch, noise)
-    c = vdp_controller(lt, f32, dev, vdp_params(lt))
     c.set_stats_mode("lazy")
 
     def steps(k0, n, x, u):
@@ -937,24 +1013,7 @@ def phase_profile_nlmpc(torch, lt, host):
             x, u = steps(k0, n, x, u)
             torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-        fam = {"K3 qp_inner": 0.0, "K2 chol_inverse": 0.0, "matmul (cuBLAS)": 0.0,
-               "reductions": 0.0, "elementwise and other": 0.0}
-        count = 0
-        for ev in prof.key_averages():
-            if str(ev.device_type).endswith("CUDA"):
-                ms = ev.self_device_time_total / 1e3
-                count += ev.count
-                key = ev.key.lower()
-                if "qp_inner" in key:
-                    fam["K3 qp_inner"] += ms
-                elif "chol_inverse" in key:
-                    fam["K2 chol_inverse"] += ms
-                elif "gemm" in key or "gemv" in key or "cutlass" in key or "bmm" in key:
-                    fam["matmul (cuBLAS)"] += ms
-                elif "reduce" in key:
-                    fam["reductions"] += ms
-                else:
-                    fam["elementwise and other"] += ms
+        fam, count = device_ms_by_family(prof)
         busy = sum(fam.values())
         phase(name, steps=n, wall_ms_per_step=f"{wall / n:.1f}",
               device_busy_ms_per_step=f"{busy / n:.1f}",
@@ -963,17 +1022,62 @@ def phase_profile_nlmpc(torch, lt, host):
               host_reads_per_step=f"{host.flag.reads / n:.1f}",
               sqp_iters_mean=f"{c._last_iters.float().mean().item():.2f}",
               **{k.replace(" ", "_"): f"{v / n:.2f}ms({100 * v / max(busy, 1e-9):.1f}%)"
-                 for k, v in fam.items()})
+                 for k, v in fam.items() if v > 0})
         return x, u
 
-    x, u = window("profile-nlmpc-cold", 0, 1, x, u)
-    x, u = steps(1, 3, x, u)
-    window("profile-nlmpc-warm", 4, 4, x, u)
+    x, u = window(f"profile-{tag}-cold", 0, 1, x, u)
+    x, u = steps(1, warm_from - 1, x, u)
+    x, u = window(f"profile-{tag}-warm", warm_from, warm_steps, x, u)
     torch.cuda.reset_peak_memory_stats()
-    steps(8, 2, x, u)
+    steps(warm_from + warm_steps, 2, x, u)
     torch.cuda.synchronize()
-    phase("profile-nlmpc-memory",
+    phase(f"profile-{tag}-memory",
           peak_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+
+
+def phase_profile_nlmpc(torch, lt, host):
+    """``--profile``: the Van der Pol loop (B=4096)."""
+    dev, f32 = "cuda", torch.float32
+    x0_h, noise_h = vdp_closed_loop_inputs(B_NL, K_NL)
+    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
+    profile_loop(torch, host, "nlmpc", vdp_controller(lt, f32, dev, vdp_params(lt)),
+                 vdp_plant(torch, noise), torch.as_tensor(x0_h, dtype=f32, device=dev),
+                 torch.zeros((B_NL, 1), dtype=f32, device=dev))
+
+
+def phase_profile_osc(torch, lt, host):
+    """``--profile``: the oscillator loop (B=1024; ``optimize`` steps, so
+    without the rollout's rescue phase)."""
+    dev, f32 = "cuda", torch.float32
+    x0_h, noise_h = osc_inputs(B_OSC, 8)
+    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
+    profile_loop(torch, host, "osc", osc_controller(lt, f32, dev, osc_params(lt)),
+                 osc_plant(torch, noise), torch.as_tensor(x0_h, dtype=f32, device=dev),
+                 torch.zeros((B_OSC, NU_O), dtype=f32, device=dev), warm_from=2, warm_steps=3)
+
+
+def phase_profile_osc_rollout(torch, lt, tk, host, mods, steps=4):
+    """``--profile``: the device's idle share of the oscillator loop from one
+    window: ``steps`` steps through ``nlmpc_rollout`` from a cold start, rescue
+    included, traced for device activity only (host-side operator records
+    slow the host about threefold; kernel records alone cost little), after
+    the same window untraced, so that the tracing's cost is printed beside the
+    share it was measured under."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plain_wall = run_osc(torch, lt, tk, host, mods, B_OSC, steps)[-1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        *_, reads, wall = run_osc(torch, lt, tk, host, mods, B_OSC, steps)
+    fam, count = device_ms_by_family(prof)
+    busy = sum(fam.values()) / 1e3
+    phase("profile-osc-rollout", B=B_OSC, steps=steps, wall_s_traced=f"{wall:.3f}",
+          wall_s_untraced=f"{plain_wall:.3f}", tracing_slowdown=f"{wall / plain_wall:.3f}",
+          device_busy_s=f"{busy:.3f}", idle_share_traced=f"{1 - busy / wall:.3f}",
+          idle_share_against_untraced_wall=f"{1 - busy / plain_wall:.3f}",
+          kernel_launches_per_step=f"{count / steps:.0f}",
+          host_reads_per_step=f"{reads / steps:.1f}",
+          **{k.replace(" ", "_"): f"{v / steps:.1f}ms_per_step"
+             for k, v in fam.items() if v > 0})
 
 
 def phase_sweep_k3(torch, qpf):
@@ -1019,7 +1123,537 @@ def phase_sweep_k3(torch, qpf):
               ms_setup_and_first_block=f"{t25:.4f}")
 
 
-PHASES = ("k1", "k2", "k3", "lmpc", "nlmpc", "times")
+# -- the networked oscillators of examples/networked_oscillators_ex.cpp --------
+def osc_dynamics(x, u, k):
+    """Six diffusively coupled Van der Pol oscillators (bench.py:565-578):
+    12 states, 6 inputs.  No in-place writes, so ``torch.func`` can
+    differentiate it."""
+    import torch
+    pos, vel = x[0::2], x[1::2]
+    coupling = 0.1 * (torch.sum(pos) - 6 * pos)
+    dvel = (1.0 - pos**2) * vel - pos + u + coupling
+    return torch.stack([vel, dvel], dim=1).reshape(-1)
+
+
+def osc_params(lt, **over):
+    """The shipped two-phase settings (bench.py:598-602): a flat cap of 30
+    interior-point iterations, then the compacted rescue at 45."""
+    kw = dict(maximum_iteration=30, enable_warm_start=True, hessian_reg="gauss_newton",
+              inner_qp="fused", inner_iters=30, inner_iters_recovery=30, rescue_iters=45)
+    kw.update(over)
+    return lt.NLParameters(**kw)
+
+
+def osc_controller(lt, dtype, device, params):
+    import torch
+    c = lt.NLMPC(NX_O, NU_O, NX_O, PH_O, CH_O, MI_O, 0, dtype=dtype, device=device)
+    c.set_discretization_sampling_time(0.1)
+    c.set_state_space_function(osc_dynamics)
+    c.set_objective_function(lambda X, Y, U, e: torch.sum(X**2) + torch.sum(U**2))
+    c.set_ineq_con_function(lambda X, Y, U, e: (U - 0.5).reshape(-1))
+    c.set_optimizer_parameters(params)
+    return c
+
+
+def osc_inputs(B, K):
+    """bench.py:610-612."""
+    rng = np.random.default_rng(13)
+    x0 = rng.uniform(-0.5, 0.5, size=(B, NX_O))
+    noise = 0.01 * rng.normal(size=(K, B, NX_O))
+    return x0, noise
+
+
+def osc_plant(torch, noise):
+    """bench.py:615-617: x + 0.1 f(x, u) + noise[k]."""
+    f = torch.func.vmap(osc_dynamics, in_dims=(0, 0, None))
+    return lambda x, u, k: x + 0.1 * f(x, u, k) + noise[k]
+
+
+def traj_blocks(B, ph, bs_p, nx, w, seed, terms=None):
+    """Stage blocks (D, L, C, G) of a batch of quasi-definite bordered
+    block-tridiagonal matrices, float64: the construction of
+    tests/test_trajectory_kkt.py:43-81 (a primal Gram of rank-one terms per
+    stage over [stage k; stage k+1; border] plus 0.1 I, a dual diagonal of
+    -0.05, random coupling of each stage's dual rows to its own and the
+    previous stage's primal slots and to the border), built block by block for
+    the whole batch.  ``terms`` is the number of rank-one terms per stage:
+    that test's six give its 5-wide primal blocks full rank but leave an
+    18-wide one resting on the 0.1 I (ill-conditioned: float32 evaluations of
+    the factorization then part at 1e-3); the default, 2 bs_p, gives full rank
+    at any width."""
+    rng = np.random.default_rng(seed)
+    bs = bs_p + nx
+    nt = max(6, 2 * bs_p) if terms is None else terms
+    a = rng.normal(size=(B, ph, nt, bs_p))  # on the stage's own primal slots
+    b = rng.normal(size=(B, ph, nt, bs_p))  # on the next stage's
+    c = rng.normal(size=(B, ph, nt, w))  # on the border
+    b[:, ph - 1] = 0.0  # the last stage has no successor
+    gram = lambda u, v: np.einsum("bkri,bkrj->bkij", u, v)
+    D = np.zeros((B, ph, bs, bs))
+    L = np.zeros((B, ph - 1, bs, bs))
+    C = np.zeros((B, ph, bs, w))
+    D[:, :, :bs_p, :bs_p] = gram(a, a) + 0.1 * np.eye(bs_p)
+    D[:, 1:, :bs_p, :bs_p] += gram(b[:, :-1], b[:, :-1])
+    L[:, :, :bs_p, :bs_p] = gram(b[:, :-1], a[:, :-1])
+    C[:, :, :bs_p] = gram(a, c)
+    C[:, 1:, :bs_p] += gram(b[:, :-1], c[:, :-1])
+    G = np.einsum("bkri,bkrj->bij", c, c) + 0.1 * np.eye(w)
+    D[:, :, bs_p:, bs_p:] = -0.05 * np.eye(nx)
+    X = rng.normal(size=(B, ph, nx, bs_p))
+    D[:, :, bs_p:, :bs_p] = X
+    D[:, :, :bs_p, bs_p:] = np.swapaxes(X, 2, 3)
+    C[:, :, bs_p:] = rng.normal(size=(B, ph, nx, w))
+    L[:, :, bs_p:, :bs_p] = rng.normal(size=(B, ph - 1, nx, bs_p))
+    return D, L, C, G
+
+
+def dense_from_blocks(D, L, C, G):
+    """The assembled matrix of one instance."""
+    ph, bs, _ = D.shape
+    w = G.shape[0]
+    n = ph * bs + w
+    M = np.zeros((n, n))
+    for k in range(ph):
+        r = slice(k * bs, (k + 1) * bs)
+        M[r, r] = D[k]
+        M[r, ph * bs:] = C[k]
+        M[ph * bs:, r] = C[k].T
+        if k:
+            q = slice((k - 1) * bs, k * bs)
+            M[r, q] = L[k - 1]
+            M[q, r] = L[k - 1].T
+    M[ph * bs:, ph * bs:] = G
+    return M
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _sym(M):
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
+# (B, ph, bs_p, nx, w): the oscillators' shape, a ragged batch of it, and a
+# single-stage problem (no sub-diagonal block)
+TRAJ_CASES = ((B_OSC, PH_O, BSP_O, NX_O, W_O), (1003, PH_O, BSP_O, NX_O, W_O),
+              (37, 1, 3, 2, 3))
+K4_SLACK = 3.0  # float32 K4 against float64, as a multiple of its twin's distance
+
+
+def osc_kkt_blocks(torch, lt, tk, lanes=64, keep=(0, 4, 9, 19)):
+    """Stage blocks (D, L, C, G) as the oscillator path hands them to K4:
+    one cold ``optimize`` step of ``lanes`` lanes, float32, the shipped
+    settings, with ``trajectory_kkt.traj_factor`` wrapped for its duration so
+    that the inputs of factorizations number ``keep`` (interior-point
+    iterations of the first inner solve) and of the step's last one are
+    copied.  Returns [(number, [D, L, C, G]), ...]."""
+    x0_h, _ = osc_inputs(lanes, 1)
+    c = osc_controller(lt, torch.float32, "cuda", osc_params(lt))
+    kept, last, inner = [], [], tk.traj_factor
+
+    def spy(plan, D, L, C, G):
+        n = spy.calls
+        spy.calls += 1
+        if n in keep:
+            kept.append((n, [a.clone() for a in (D, L, C, G)]))
+        last[:] = [(n, [a.clone() for a in (D, L, C, G)])]
+        return inner(plan, D, L, C, G)
+
+    spy.calls = 0
+    tk.traj_factor = spy
+    try:
+        c.optimize(torch.as_tensor(x0_h, dtype=torch.float32, device="cuda"),
+                   torch.zeros((lanes, NU_O), dtype=torch.float32, device="cuda"))
+    finally:
+        tk.traj_factor = inner
+    return kept + [b for b in last if b[0] not in keep]
+
+
+def k4_float32_against_float64(torch, ts, t32, bs_p):
+    """The float32 kernel and the float32 twin on the same float32 blocks,
+    each against the float64 twin of those blocks: errors relative to scale
+    on Sinv, X and the symmetrized border Schur complement, per lane.
+    Returns (kernel errors (3, B), twin errors (3, B), kernel against twin (3,))."""
+    ref = ts.traj_factor_plain(*(a.double() for a in t32), bs_p)
+    got = ts.batched_factor(*t32, bs_p)
+    twin = ts.traj_factor_plain(*t32, bs_p)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(o).all().item()) for o in got), "K4 output finite")
+    ref = (ref[0], ref[1], _sym(ref[2]))
+
+    def lanes(out):
+        out = (out[0], out[1], _sym(out[2]))
+        return torch.stack([
+            (o.double() - r).flatten(1).abs().amax(dim=1) / r.abs().max().clamp(min=1e-30)
+            for o, r in zip(out, ref)]).cpu().numpy()
+
+    pair = [_rel(got[0], twin[0]), _rel(got[1], twin[1]), _rel(_sym(got[2]), _sym(twin[2]))]
+    return lanes(got), lanes(twin), pair
+
+
+def phase_k4(torch, ts, lt, tk):
+    """K4 against its twin on the card.
+
+    On well-conditioned blocks (``traj_blocks`` with full-rank primal Grams):
+    float64 within 1e-10 of scale on Sinv, X and the symmetrized border Schur
+    complement, float32 within 1e-4.
+
+    On ill-conditioned blocks two float32 evaluations of the same
+    factorization part by their rounding, so there the float32 kernel and the
+    float32 twin are each held against the float64 twin of the same float32
+    blocks, and the kernel may be no further from it than ``K4_SLACK`` times
+    the twin is (largest lane and median lane): on the six-term construction
+    of tests/test_trajectory_kkt.py at the oscillators' width, and on the
+    blocks of real interior-point iterations of the oscillator path (early
+    ones and the step's last, where the barrier weights are largest).
+    float64 kernel against float64 twin stays at 1e-10 on all of them."""
+    res = {}
+    for B, ph, bs_p, nx, w in TRAJ_CASES:
+        data = traj_blocks(B, ph, bs_p, nx, w, seed=B)
+        for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+            t = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in data]
+            got = ts.batched_factor(*t, bs_p)
+            torch.cuda.synchronize()
+            want = ts.traj_factor_plain(*t, bs_p)
+            torch.cuda.synchronize()
+            require(all(bool(torch.isfinite(o).all().item()) for o in got), "K4 output finite")
+            rel = [_rel(got[0], want[0]), _rel(got[1], want[1]),
+                   _rel(_sym(got[2]), _sym(want[2]))]
+            absmax = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+            name = str(dtype).split(".")[-1]
+            phase("K4", dtype=name, B=B, ph=ph, bs=bs_p + nx, bs_p=bs_p, w=w,
+                  rel_err_Sinv_X_Ghat="/".join(f"{r:.2e}" for r in rel), tol=tol,
+                  max_abs_err=f"{absmax:.3e}",
+                  smem_bytes=ts.factor_smem_bytes(bs_p + nx, bs_p, w, dtype))
+            require(max(rel) <= tol, f"K4 {name} B={B} ph={ph} within {tol} of its twin")
+            if B == B_OSC and dtype == torch.float32:
+                res["float32"] = absmax
+
+    hard = [("six-term", [torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in
+                          traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=7, terms=6)])]
+    hard += [(f"osc-ipm-{n}", blocks) for n, blocks in osc_kkt_blocks(torch, lt, tk)]
+    for tag, t32 in hard:
+        t64 = [a.double() for a in t32]
+        got, want = ts.batched_factor(*t64, BSP_O), ts.traj_factor_plain(*t64, BSP_O)
+        rel64 = max(_rel(got[0], want[0]), _rel(got[1], want[1]),
+                    _rel(_sym(got[2]), _sym(want[2])))
+        ek, et, pair = k4_float32_against_float64(torch, ts, t32, BSP_O)
+        worst_k, worst_t = float(ek.max()), float(et.max())
+        med_k, med_t = float(np.median(ek.max(axis=0))), float(np.median(et.max(axis=0)))
+        phase("K4-hard", data=tag, B=t32[0].shape[0], float64_kernel_vs_twin=f"{rel64:.2e}",
+              tol64=1e-10, float32_kernel_vs_float64="/".join(f"{e:.2e}" for e in ek.max(axis=1)),
+              float32_twin_vs_float64="/".join(f"{e:.2e}" for e in et.max(axis=1)),
+              float32_kernel_vs_twin="/".join(f"{e:.2e}" for e in pair),
+              lane_median_kernel=f"{med_k:.2e}", lane_median_twin=f"{med_t:.2e}",
+              slack=K4_SLACK)
+        require(rel64 <= 1e-10, f"K4 float64 within 1e-10 of its twin on {tag}")
+        require(worst_k <= K4_SLACK * worst_t and med_k <= K4_SLACK * med_t,
+                f"K4 float32 no further from float64 than {K4_SLACK} x its twin on {tag}")
+    return res
+
+
+def phase_k5(torch, ts, batched_linalg):
+    """K5 against its twin on the card, on the factors the twin of K4 makes of
+    the same data: float64 within 1e-10 of scale on xs and g; float32 within
+    1e-5 of (scale + 1), the tolerance of tests/test_trajectory_kkt.py:133-135.
+    Then K4, K2 and K5 together against ``numpy.linalg.solve`` of the
+    assembled matrix on three lanes, float64, 1e-9."""
+    res = {}
+    for B, ph, bs_p, nx, w in TRAJ_CASES:
+        bs = bs_p + nx
+        data = traj_blocks(B, ph, bs_p, nx, w, seed=B)
+        rng = np.random.default_rng(B + 1)
+        r_h = rng.normal(size=(B, ph * bs + w))
+        t64 = [torch.as_tensor(a, device="cuda") for a in data]
+        Sinv, X, Ghat = ts.traj_factor_plain(*t64, bs_p)
+        Gi = torch.linalg.inv(_sym(Ghat))
+        rs = torch.as_tensor(r_h[:, :ph * bs].reshape(B, ph, bs), device="cuda").contiguous()
+        rg = torch.as_tensor(r_h[:, ph * bs:], device="cuda").contiguous()
+        for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+            args = [a.to(dtype).contiguous() for a in (Sinv, t64[1], X, Gi, rs, rg)]
+            got = ts.batched_sweep_solve(*args)
+            torch.cuda.synchronize()
+            want = ts.traj_solve_plain(*args)
+            torch.cuda.synchronize()
+            require(all(bool(torch.isfinite(o).all().item()) for o in got), "K5 output finite")
+            scale = want[0].abs().max().item() + (1.0 if dtype == torch.float32 else 0.0)
+            err = [(g - w_).abs().max().item() / scale for g, w_ in zip(got, want)]
+            absmax = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+            name = str(dtype).split(".")[-1]
+            phase("K5", dtype=name, B=B, ph=ph, bs=bs, w=w,
+                  err_xs_g_over_scale="/".join(f"{e:.2e}" for e in err), tol=tol,
+                  scale=f"{scale:.3e}", max_abs_err=f"{absmax:.3e}",
+                  smem_bytes=ts.sweep_smem_bytes(ph, bs, w, dtype))
+            require(max(err) <= tol, f"K5 {name} B={B} ph={ph} within {tol} of its twin")
+            if B == B_OSC and dtype == torch.float32:
+                res["float32"] = absmax
+        # the three kernels together against a dense solve
+        Sk, Xk, Gk = ts.batched_factor(*t64, bs_p)
+        Gik = batched_linalg.chol_inverse(_sym(Gk).contiguous())
+        xs, xg = ts.batched_sweep_solve(Sk, t64[1], Xk, Gik, rs, rg)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for lane in (0, B // 2, B - 1):
+            ref = np.linalg.solve(dense_from_blocks(*(a[lane] for a in data)), r_h[lane])
+            x = np.concatenate([xs[lane].cpu().numpy().ravel(), xg[lane].cpu().numpy()])
+            worst = max(worst, float(np.abs(x - ref).max() / np.abs(ref).max()))
+        phase("K4+K2+K5-dense", dtype="float64", B=B, ph=ph, lanes=3,
+              rel_err=f"{worst:.3e}", tol=1e-9)
+        require(worst <= 1e-9, f"factor and solve within 1e-9 of a dense solve (B={B}, ph={ph})")
+    return res
+
+
+K2_BLOCKED_SHAPES = ((256, NZ_O + 1), (256, ME_O))  # float32 pdip at oscillator size
+
+
+def phase_k2_blocked(torch, batched_linalg):
+    """K2's blocked recursion (48-wide diagonal blocks through the kernel,
+    the rest as batched products) against ``chol_inverse_plain`` at the sizes
+    the float32 dense interior point would give it for the oscillators."""
+    res = {}
+    for B, k in K2_BLOCKED_SHAPES:
+        C64 = torch.as_tensor(spd_batch(B, k, seed=k), device="cuda")
+        eye = torch.eye(k, dtype=torch.float64, device="cuda")
+        for dtype, tol, rtol in ((torch.float32, 1e-4, 1e-3), (torch.float64, 1e-10, 1e-8)):
+            C = C64.to(dtype)
+            n0 = batched_linalg.chol_inverse.launches
+            got = batched_linalg.spd_inverse(C)
+            n_leaf = batched_linalg.chol_inverse.launches - n0
+            want = batched_linalg.chol_inverse_plain(C)
+            torch.cuda.synchronize()
+            rel = _rel(got, want)
+            resid = (C.double() @ got.double() - eye).abs().amax(dim=(1, 2)).max().item()
+            name = str(dtype).split(".")[-1]
+            phase("K2-blocked", dtype=name, shape=f"({B},{k},{k})", rel_err=f"{rel:.3e}",
+                  tol=tol, resid_inf=f"{resid:.3e}", resid_tol=rtol, leaf_launches=n_leaf)
+            require(rel <= tol, f"blocked K2 {name} ({B},{k},{k}) within {tol} of its twin")
+            require(resid <= rtol, f"blocked K2 {name} ||C Cinv - I|| <= {rtol}")
+            require(n_leaf > 1, "blocked K2 went through the kernel's leaves")
+            if dtype == torch.float32 and k == NZ_O + 1:
+                res["float32"] = (got - want).abs().max().item()
+    return res
+
+
+def osc_engine(lt, sqp, c):
+    """The inner engine ``ops/sqp.py`` routes this controller's solves to."""
+    d = c.dims
+    me = d.ph * d.nx + d.eq
+    return sqp.inner_engine(c._params, c.dtype, d.nz, me + d.ineq + d.nz,
+                            sqp.plan_applies(c._get_traj_plan(), c._params, d.nz, me, d.ineq))
+
+
+def run_osc(torch, lt, tk, host, mods, B, K):
+    """One oscillator closed loop through ``nlmpc_rollout`` from a cold start,
+    float32, the shipped settings.  Returns the rollout, the launch counts,
+    the interior-point iteration counts of every inner solve, (failed,
+    rescued) lanes per step, host reads and wall seconds."""
+    dev, f32 = "cuda", torch.float32
+    x0_h, noise_h = osc_inputs(B, K)
+    x0 = torch.as_tensor(x0_h, dtype=f32, device=dev)
+    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
+    c = osc_controller(lt, f32, dev, osc_params(lt))
+    reset_counts(*mods)
+    tk.ipm_solve.trace = []
+    lt.nlmpc_rollout.rescued = []
+    host.flag.reads = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = lt.nlmpc_rollout(c, osc_plant(torch, noise), x0,
+                         torch.zeros((B, NU_O), dtype=f32, device=dev), K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(*mods)
+    trace, tk.ipm_solve.trace = tk.ipm_solve.trace, None
+    rescued, lt.nlmpc_rollout.rescued = lt.nlmpc_rollout.rescued, None
+    ipm = torch.cat(trace).cpu().numpy()
+    return c, r, launches, ipm, len(trace), rescued, host.flag.reads, wall
+
+
+def phase_main_osc(torch, lt, tk, sqp, qpf, host, mods):
+    """The third main path: the networked-oscillators NLMPC closed loop at
+    the example's own width (nz = 301) through the banded-KKT engine."""
+    c, r, launches, ipm, n_ipm, rescued, reads, wall = run_osc(
+        torch, lt, tk, host, mods, B_OSC, K_OSC)
+    plan = c._get_traj_plan()
+    require(plan == tk.TrajPlan(ph=PH_O, ch=CH_O, nx=NX_O, nu=NU_O, mi=MI_O),
+            f"the probe verified the oscillators' banded structure, got {plan}")
+    require((plan.nz, plan.bs, plan.bs_p, plan.w) == (NZ_O, BS_O, BSP_O, W_O), "plan widths")
+    require(not qpf.supported(NZ_O, ME_O + MI_O + NZ_O), "nz = 301 is past the fused gate")
+    engine = osc_engine(lt, sqp, c)
+    require(engine == "riccati", f"the fused request is routed to riccati, got {engine}")
+    require(tuple(r.inputs.shape) == (B_OSC, K_OSC, NU_O), "inputs shape (B, K, 6)")
+    require(tuple(r.states.shape) == (B_OSC, K_OSC + 1, NX_O), "states shape (B, K+1, 12)")
+    require(bool(torch.isfinite(r.inputs).all().item()), "commands finite")
+    status = r.statuses.cpu().numpy()
+    iters = r.iterations.cpu().numpy()
+    for k in range(K_OSC):
+        phase("osc-step", k=k, sqp_iters_mean=f"{iters[:, k].mean():.2f}",
+              sqp_iters_max=int(iters[:, k].max()),
+              success_frac=f"{(status[:, k] == 0).mean():.6f}",
+              failed_lanes=rescued[k][0], rescued_lanes=rescued[k][1])
+    mix = {lt.ResultStatus(int(v)).name: int(n)
+           for v, n in zip(*np.unique(status, return_counts=True))}
+    frac = float((status == 0).mean())
+    cmd_max = r.inputs.max().item()
+    n_launch = sum(launches.values())
+    phase("main-osc", dtype="float32", B=B_OSC, steps=K_OSC, nz=NZ_O, engine=engine,
+          success_frac=f"{frac:.6f}", jax_float32_record=OSC_JAX_SUCCESS[B_OSC],
+          status_mix=json.dumps(mix).replace(" ", ""),
+          rescued_per_step=json.dumps([n for _, n in rescued]).replace(" ", ""),
+          sqp_iters_mean=f"{iters.mean():.2f}", sqp_iters_max=int(iters.max()),
+          inner_solves=n_ipm, ipm_iters_mean=f"{ipm.mean():.2f}", ipm_iters_max=int(ipm.max()),
+          cmd_max=f"{cmd_max:.7f}", launches_traj_factor=launches["traj_factor"],
+          launches_traj_sweep=launches["traj_sweep"],
+          launches_chol_inverse=launches["chol_inverse"],
+          launches_qp_inner=launches["qp_inner"], launches_admm_fused=launches["admm_fused"],
+          hand_written_launches_per_step=f"{n_launch / K_OSC:.1f}",
+          host_reads=reads, host_reads_per_step=f"{reads / K_OSC:.1f}",
+          wall_s=f"{wall:.3f}", solves_per_s=f"{B_OSC * K_OSC / wall:.1f}")
+    require(launches["traj_factor"] > 0, "oscillator path launched K4")
+    require(launches["traj_sweep"] >= 2 * launches["traj_factor"],
+            "oscillator path launched K5 twice per factorization")
+    require(launches["chol_inverse"] > 0, "oscillator path launched K2")
+    require(launches["qp_inner"] == 0, "oscillator path did not launch K3")
+    require(frac >= 0.99, f"oscillator success fraction {frac} >= 0.99")
+    require(cmd_max <= 0.5 + 1e-5, f"commands never above 0.5 + 1e-5 (max {cmd_max})")
+    # the success fraction at the other two batch sizes of the JAX records
+    for B in (256, 512):
+        _, rb, _, _, _, resc, _, wall_b = run_osc(torch, lt, tk, host, mods, B, 4)
+        fb = float((rb.statuses == 0).float().mean().item())
+        phase("osc-batch", B=B, steps=4, success_frac=f"{fb:.6f}",
+              jax_float32_record=OSC_JAX_SUCCESS[B],
+              rescued_per_step=json.dumps([n for _, n in resc]).replace(" ", ""),
+              solves_per_s=f"{B * 4 / wall_b:.1f}")
+        require(bool(torch.isfinite(rb.inputs).all().item()), f"commands finite at B={B}")
+    return launches, wall
+
+
+def phase_matched_osc(torch, lt, sqp):
+    """The oscillators have no float64 oracle file, so one is made here: 64
+    lanes, a cold and a warm step, float64 ``riccati`` against float64
+    ``pdip`` at the same states (commands within 1e-6, statuses and SQP
+    iteration counts equal).  Then float32 with the shipped settings against
+    that float64 result at the same states; its error is printed, not yet
+    limited."""
+    B = 64
+    x0_h, noise_h = osc_inputs(B, 1)
+    deep = dict(inner_iters=0, inner_iters_recovery=0, rescue_iters=0)
+    f64 = torch.float64
+    ric = osc_controller(lt, f64, "cuda", osc_params(lt, inner_qp="riccati", **deep))
+    dense = osc_controller(lt, f64, "cuda", osc_params(lt, inner_qp="pdip", **deep))
+    fast = osc_controller(lt, torch.float32, "cuda", osc_params(lt))
+    require(osc_engine(lt, sqp, ric) == "riccati" and osc_engine(lt, sqp, dense) == "pdip"
+            and osc_engine(lt, sqp, fast) == "riccati", "engines of the matched-state check")
+    x = torch.as_tensor(x0_h, dtype=f64, device="cuda")
+    u = torch.zeros((B, NU_O), dtype=f64, device="cuda")
+    plant = osc_plant(torch, torch.as_tensor(noise_h, dtype=f64, device="cuda"))
+    errs = []
+    for step in ("cold", "warm"):
+        rr, rd = ric.optimize(x, u), dense.optimize(x, u)
+        rf = fast.optimize(x.float(), u.float())
+        gap = (rr.cmd - rd.cmd).abs().max().item()
+        same = (torch.equal(rr.status, rd.status)
+                and torch.equal(ric._last_iters, dense._last_iters))
+        e32 = (rf.cmd.double() - rr.cmd).abs().amax(dim=1).cpu().numpy()
+        errs.append(e32)
+        phase("matched-osc", step=step, B=B, riccati_vs_pdip_f64=f"{gap:.3e}", tol=1e-6,
+              status_and_sqp_iters_equal=same,
+              sqp_iters_f64=f"{ric._last_iters.float().mean().item():.2f}",
+              success_f64=f"{(rr.status == 0).float().mean().item():.4f}",
+              success_f32=f"{(rf.status == 0).float().mean().item():.4f}",
+              f32_cmd_err_mean=f"{e32.mean():.3e}", f32_cmd_err_p99=f"{np.quantile(e32, 0.99):.3e}",
+              f32_cmd_err_max=f"{e32.max():.3e}")
+        require(gap <= 1e-6, f"float64 riccati within 1e-6 of float64 pdip ({step} step)")
+        require(same, f"float64 riccati and pdip: statuses and SQP iterations equal ({step})")
+        x, u = plant(x, rr.cmd, 0), rr.cmd
+    return np.concatenate(errs)
+
+
+def traj_factor_bound_ms(B, ph, bs, bs_p, w):
+    """Least time for K4, float32.  Bytes: D, L, C, G read once, Sinv, X,
+    Ghat written once.  Operations per stage, from the kernel's products:
+    L S^-1 and (L S^-1) L' (4 bs^3), the three products with Z or U forward
+    and the two backward (8 bs^2 w), Z' U (2 bs w^2), the two Cholesky
+    inverses (p^3 + n^3) and the four products of the quasi-definite inverse
+    (4 n p^2 + 4 n^2 p)."""
+    n = bs - bs_p
+    words = B * (ph * bs * bs + (ph - 1) * bs * bs + ph * bs * w + w * w
+                 + ph * bs * bs + ph * bs * w + w * w)
+    flops = B * ph * (4 * bs**3 + 8 * bs * bs * w + 2 * bs * w * w + bs_p**3 + n**3
+                      + 4 * n * bs_p**2 + 4 * n * n * bs_p)
+    return _bound(words, flops)
+
+
+def traj_sweep_bound_ms(B, ph, bs, w):
+    """Least time for K5, float32.  Bytes: Sinv, L, X, Ghat_inv, r_stage, r_g
+    read once, xs and g written once (the kernel reads Sinv, L and X a second
+    time on its way back, which the bound does not count).  Operations: four
+    bs x bs and two bs x w matrix-vector products per stage, one w x w."""
+    words = B * (ph * bs * bs + (ph - 1) * bs * bs + ph * bs * w + w * w
+                 + 2 * ph * bs + 2 * w)
+    flops = B * (ph * (8 * bs * bs + 4 * bs * w) + 2 * w * w)
+    return _bound(words, flops)
+
+
+def phase_times_osc(torch, lt, tk, host, mods, ts, batched_linalg, card, main_wall=None):
+    dev, f32 = "cuda", torch.float32
+    data = [torch.as_tensor(a, dtype=f32, device=dev)
+            for a in traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)]
+    k4_ms = cuda_ms(torch, lambda: ts.batched_factor(*data, BSP_O), reps=20)
+    k4_plain = cuda_ms(torch, lambda: ts.traj_factor_plain(*data, BSP_O), reps=3, warmup=1)
+    Sinv, X, Ghat = ts.batched_factor(*data, BSP_O)
+    Gi = batched_linalg.chol_inverse(_sym(Ghat).contiguous())
+    rs = torch.randn((B_OSC, PH_O, BS_O), dtype=f32, device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+    rg = torch.ones((B_OSC, W_O), dtype=f32, device=dev)
+    sweep = (Sinv, data[1], X, Gi, rs, rg)
+    k5_ms = cuda_ms(torch, lambda: ts.batched_sweep_solve(*sweep), reps=20)
+    k5_plain = cuda_ms(torch, lambda: ts.traj_solve_plain(*sweep), reps=3, warmup=1)
+    k4_bound, k4_by = traj_factor_bound_ms(B_OSC, PH_O, BS_O, BSP_O, W_O)
+    k5_bound, k5_by = traj_sweep_bound_ms(B_OSC, PH_O, BS_O, W_O)
+    # K2 at the border's shape and K2 blocked, beside the library call
+    G8 = torch.as_tensor(spd_batch(B_OSC, W_O, seed=5), dtype=f32, device=dev)
+    k2_ms = cuda_ms(torch, lambda: batched_linalg.chol_inverse(G8), reps=20)
+    k2_plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(G8), reps=20)
+    k2_lib = cuda_ms(torch, lambda: torch.linalg.inv(G8), reps=20)
+    Bb, kb = K2_BLOCKED_SHAPES[0]
+    Cb = torch.as_tensor(spd_batch(Bb, kb, seed=kb), dtype=f32, device=dev)
+    kb_ms = cuda_ms(torch, lambda: batched_linalg.chol_inverse_blocked(Cb), reps=5)
+    kb_plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(Cb), reps=5)
+    kb_lib = cuda_ms(torch, lambda: torch.linalg.inv(Cb), reps=5)
+    k2_bound, k2_by = k2_bound_ms(B_OSC, W_O)
+    kb_bound, kb_by = k2_bound_ms(Bb, kb)
+    phase("times-kernels-osc", card=repr(card),
+          K4_ms=f"{k4_ms:.4f}", K4_plain_ms=f"{k4_plain:.4f}", K4_bound_ms=f"{k4_bound:.5f}",
+          K4_bound_by=k4_by,
+          K4_shape=f"B={B_OSC},ph={PH_O},bs={BS_O},bs_p={BSP_O},w={W_O},float32",
+          K5_ms=f"{k5_ms:.4f}", K5_plain_ms=f"{k5_plain:.4f}", K5_bound_ms=f"{k5_bound:.5f}",
+          K5_bound_by=k5_by,
+          K2_ms=f"{k2_ms:.4f}", K2_plain_ms=f"{k2_plain:.4f}", K2_library_ms=f"{k2_lib:.4f}",
+          K2_bound_ms=f"{k2_bound:.6f}", K2_bound_by=k2_by,
+          K2_shape=f"({B_OSC},{W_O},{W_O}),float32",
+          K2_blocked_ms=f"{kb_ms:.4f}", K2_blocked_plain_ms=f"{kb_plain:.4f}",
+          K2_blocked_library_ms=f"{kb_lib:.4f}", K2_blocked_bound_ms=f"{kb_bound:.5f}",
+          K2_blocked_bound_by=kb_by, K2_blocked_shape=f"({Bb},{kb},{kb}),float32")
+    # two runs of the closed loop; the main path's, where it ran, is the first
+    walls = [main_wall] if main_wall else []
+    while len(walls) < 2:
+        walls.append(run_osc(torch, lt, tk, host, mods, B_OSC, K_OSC)[-1])
+    rates = [B_OSC * K_OSC / w_ for w_ in walls]
+    phase("times-e2e-osc", card=repr(card), B=B_OSC, closed_loop_steps=K_OSC,
+          closed_loop_s="/".join(f"{w_:.3f}" for w_ in walls),
+          closed_loop_solves_per_s="/".join(f"{r_:.1f}" for r_ in rates),
+          closed_loop_mean=f"{float(np.mean(rates)):.1f}",
+          step_ms_mean=f"{1e3 * float(np.mean(walls)) / K_OSC:.1f}",
+          first_is_the_main_path_run=main_wall is not None)
+    return {"traj_factor": (k4_ms, k4_plain, k4_bound, k4_by, None),
+            "traj_sweep": (k5_ms, k5_plain, k5_bound, k5_by, None),
+            "k2_osc": (k2_ms, k2_plain, k2_lib, k2_bound),
+            "k2_blocked": (kb_ms, kb_plain, kb_lib, kb_bound)}
+
+
+PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "times")
 
 
 def main(argv=None) -> int:
@@ -1045,61 +1679,93 @@ def main(argv=None) -> int:
     from libmpc_tpu_torch.ops import _host as host
     from libmpc_tpu_torch.ops import admm, admm_fused, batched_linalg
     from libmpc_tpu_torch.ops import qp_inner_fused as qpf
+    from libmpc_tpu_torch.ops import sqp
+    from libmpc_tpu_torch.ops import trajectory_kkt as tk
+    from libmpc_tpu_torch.ops import trajectory_sweeps as ts
 
+    mods = (admm_fused, batched_linalg, qpf, ts)
+    wall_nl = wall_osc = None
     card = phase_environment(torch, admm)
     phase_build()
     if "k1" in want:
         k1_err = phase_k1(torch, admm_fused)
     if "k2" in want:
         k2_err = phase_k2(torch, batched_linalg)
-        phase_k2_nlmpc(torch, batched_linalg)
+        k2_err.update(phase_k2_nlmpc(torch, batched_linalg))
+        k2b_err = phase_k2_blocked(torch, batched_linalg)
     if "k3" in want:
         k3_err = phase_k3(torch, qpf)
+    if "k4" in want:
+        k4_err = phase_k4(torch, ts, lt, tk)
+    if "k5" in want:
+        k5_err = phase_k5(torch, ts, batched_linalg)
     if "lmpc" in want:
-        launches, _ = phase_main(torch, lt, admm_fused, batched_linalg, qpf)
+        launches, _ = phase_main(torch, lt, mods)
         phase_matched(torch, lt)
         phase_golden_f64(torch, lt, admm_fused, batched_linalg)
     if "nlmpc" in want:
-        launches_nl = phase_main_nlmpc(torch, lt, admm_fused, batched_linalg, qpf, host)
+        launches_nl, wall_nl = phase_main_nlmpc(torch, lt, qpf, host, mods)
         phase_matched_nlmpc(torch, lt)
-        phase_golden_f64_nlmpc(torch, lt, batched_linalg, qpf)
+        phase_golden_f64_nlmpc(torch, lt, mods)
+    if "osc" in want:
+        launches_osc, wall_osc = phase_main_osc(torch, lt, tk, sqp, qpf, host, mods)
+        osc_err = phase_matched_osc(torch, lt, sqp)
     if opts.profile:
         phase_profile_nlmpc(torch, lt, host)
+        phase_profile_osc(torch, lt, host)
+        phase_profile_osc_rollout(torch, lt, tk, host, mods)
     if opts.sweep_k3:
         phase_sweep_k3(torch, qpf)
     if "times" in want:
         times = phase_times(torch, lt, admm_fused, batched_linalg, card)
-        times.update(phase_times_nlmpc(torch, lt, qpf, batched_linalg, card))
+        times.update(phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, wall_nl))
+        times.update(phase_times_osc(torch, lt, tk, host, mods, ts, batched_linalg, card,
+                                     wall_osc))
     if want != set(PHASES):
         print(f"chip_smoke: ran only {sorted(want)}; no result line", flush=True)
         return 0
 
-    def entry(name, source, replaces, n_launch, err, key, **extra):
-        ms, plain, bound, by, lib = times[key]
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bound, bound_by=by, library_ms=lib, **extra)
+    paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc}
 
-    k2n = times["k2_nlmpc"]
+    def entry(name, source, replaces, err, **extra):
+        ms, plain, bound, by, lib = times[name]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=sum(p_[name] for p_ in paths.values()), max_abs_err=err, ms=ms,
+                    plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                    launches_by_path={k: v[name] for k, v in paths.items()}, **extra)
+
+    def at_shape(shape, key, bound=None):
+        ms, plain, lib, *rest = times[key]
+        return {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": rest[0] if rest else bound}
+
+    osc_shape = f"B={B_OSC},ph={PH_O},bs={BS_O},bs_p={BSP_O},w={W_O},float32"
     kernels = [
         entry("admm_fused", "libmpc_tpu_torch/csrc/admm_fused.cu",
-              "libmpc_tpu/ops/admm_pallas.py:143",
-              launches["admm_fused"] + launches_nl["admm_fused"], k1_err["float32"],
-              "admm_fused", shape=f"B={B_MAIN},n={N_QP},m={M_QP},k_iters=10,float32"),
+              "libmpc_tpu/ops/admm_pallas.py:143", k1_err["float32"],
+              shape=f"B={B_MAIN},n={N_QP},m={M_QP},k_iters=10,float32"),
         entry("chol_inverse", "libmpc_tpu_torch/csrc/chol_inverse.cu",
-              "libmpc_tpu/ops/batched_linalg.py:110",
-              launches["chol_inverse"] + launches_nl["chol_inverse"], k2_err["float32"],
-              "chol_inverse", shape=f"({B_MAIN},24,24),float32",
-              launches_by_path={"lmpc": launches["chol_inverse"],
-                                "nlmpc": launches_nl["chol_inverse"]},
-              at_nlmpc_shape={"shape": f"({B_NL},{ME_NL},{ME_NL}),float32", "ms": k2n[0],
-                              "plain_ms": k2n[1], "library_ms": k2n[2],
-                              "bound_ms": k2_bound_ms(B_NL, ME_NL)[0]}),
+              "libmpc_tpu/ops/batched_linalg.py:110", k2_err["float32"],
+              shape=f"({B_MAIN},24,24),float32",
+              at_nlmpc_shape=at_shape(f"({B_NL},{ME_NL},{ME_NL}),float32", "k2_nlmpc",
+                                      k2_bound_ms(B_NL, ME_NL)[0]),
+              at_osc_shape=dict(at_shape(f"({B_OSC},{W_O},{W_O}),float32", "k2_osc"),
+                                max_abs_err=k2_err["osc_float32"]),
+              blocked=dict(at_shape("({0},{1},{1}),float32".format(*K2_BLOCKED_SHAPES[0]),
+                                    "k2_blocked"),
+                           replaces="libmpc_tpu/ops/batched_linalg.py:125",
+                           max_abs_err=k2b_err["float32"])),
         entry("qp_inner", "libmpc_tpu_torch/csrc/qp_inner.cu",
-              "libmpc_tpu/ops/qp_inner_pallas.py:362",
-              launches["qp_inner"] + launches_nl["qp_inner"], k3_err["float32"],
-              "qp_inner", shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32"),
+              "libmpc_tpu/ops/qp_inner_pallas.py:362", k3_err["float32"],
+              shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32"),
+        entry("traj_factor", "libmpc_tpu_torch/csrc/traj_factor.cu",
+              "libmpc_tpu/ops/trajectory_sweeps.py:201", k4_err["float32"], shape=osc_shape),
+        entry("traj_sweep", "libmpc_tpu_torch/csrc/traj_sweep.cu",
+              "libmpc_tpu/ops/trajectory_sweeps.py:337", k5_err["float32"], shape=osc_shape),
     ]
+    print(json.dumps({"osc_f32_cmd_err_vs_f64": {
+        "mean": float(osc_err.mean()), "p99": float(np.quantile(osc_err, 0.99)),
+        "max": float(osc_err.max())}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,16 @@
 
 Linear MPC over a sparse simultaneous QP, solved by a batched
 OSQP-equivalent ADMM solver, and nonlinear MPC by a batched SQP with exact
-``torch.func`` derivatives.  The ADMM iteration blocks, the small SPD
-inverses and the SQP's whole inner-QP solves run in hand-written CUDA
-kernels on an NVIDIA H100 (float32 or float64), and in plain PyTorch on the
-CPU.  Controllers run on the CUDA card unless built with ``device="cpu"``.
+``torch.func`` derivatives whose inner QPs go to a fused ADMM solve or, for
+large trajectory problems, to a banded-KKT interior point.  The ADMM
+iteration blocks, the small SPD inverses, the whole inner-QP solves and the
+banded factorization and solve sweeps run in hand-written CUDA kernels on an
+NVIDIA H100 (float32 or float64), and in plain PyTorch on the CPU.
+Controllers run on the CUDA card unless built with ``device="cpu"``.
 The JAX package ``libmpc_tpu`` is the reference this port is held against;
 this package imports neither it nor JAX.  Not ported yet: the SQP's
-``inner_qp="admm"`` and ``"riccati"`` engines, fleets, checkpoints and the
-compatibility surface.
+``inner_qp="admm"`` engine, fleets, checkpoints and the compatibility
+surface.
 """
 
 from .dims import LDims, NLDims

@@ -9,7 +9,10 @@ way: the warm start and bounds of a controller
 (:func:`nlmpc_state_to_numpy` / :func:`nlmpc_state_from_numpy`, whose keys
 are the attributes both packages' ``NLMPC`` share) and an SQP loop carry by
 field name (:func:`carry_from_numpy` / :func:`carry_to_numpy`), so a test can
-start both packages from the same state.  Nothing here imports JAX.
+start both packages from the same state.  The banded-KKT engine's records
+cross by field name too: a ``TrajPlan`` (:func:`traj_plan_from_fields`, from
+any object with the plan's integer fields), ``TrajFactors`` and a
+``TrajIPMSolution`` (batch axis leading).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from .lmpc.problem import LProblemData
 from .ops.admm import PreparedQP
 from .ops.sqp import Carry
+from .ops.trajectory_kkt import TrajFactors, TrajIPMSolution, TrajPlan
 
 
 def _tensor(v, device, dtype):
@@ -90,6 +94,34 @@ def carry_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
 
 def carry_to_numpy(carry: Carry) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in carry._asdict().items()}
+
+
+def traj_plan_from_fields(plan) -> Optional[TrajPlan]:
+    """The port's :class:`TrajPlan` from any record with the same integer
+    fields (the JAX package's plan, or a mapping); ``None`` stays ``None``."""
+    if plan is None:
+        return None
+    get = plan.__getitem__ if isinstance(plan, Mapping) else lambda k: getattr(plan, k)
+    return TrajPlan(**{f.name: int(get(f.name)) for f in dataclasses.fields(TrajPlan)})
+
+
+def traj_factors_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
+                            dtype=torch.float64) -> TrajFactors:
+    """:class:`TrajFactors` (batch axis leading) from numpy arrays named by
+    its fields."""
+    return TrajFactors(**{k: _tensor(arrays[k], device, dtype) for k in TrajFactors._fields})
+
+
+def traj_ipm_solution_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
+                                 dtype=torch.float64) -> TrajIPMSolution:
+    """A :class:`TrajIPMSolution` (batch axis leading) from numpy arrays named
+    by its fields; ``status`` and ``iters`` become int32."""
+    out = {}
+    for k in TrajIPMSolution._fields:
+        a = np.array(arrays[k])
+        out[k] = (torch.as_tensor(a.astype(np.int32), device=device)
+                  if k in ("status", "iters") else _tensor(a, device, dtype))
+    return TrajIPMSolution(**out)
 
 
 def nlmpc_state_to_numpy(controller) -> dict:

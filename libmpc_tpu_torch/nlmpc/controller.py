@@ -24,7 +24,7 @@ from torch.func import jacfwd, vmap
 from torch.utils._pytree import tree_map
 
 from ..dims import NLDims
-from ..ops import sqp
+from ..ops import sqp, trajectory_kkt
 from ..types import (
     HorizonSlice,
     NLParameters,
@@ -116,6 +116,7 @@ class NLMPC:
         self._runtime_params = ()  # per-solve parameter pytree of tensors
         self._runtime_params_batched = False
         self._instance_bounds = None  # optional (B, nz) lb/ub override pair
+        self._traj_plan = None, False  # (plan, probed?)
 
     def _t(self, a) -> torch.Tensor:
         """A tensor of the controller's dtype on its device."""
@@ -201,6 +202,8 @@ class NLMPC:
         With ``batched=True`` every leaf carries a leading batch axis matched
         to the batch of ``optimize`` — per-instance scenario data (e.g. each
         instance its own obstacle set)."""
+        if batched != self._runtime_params_batched:
+            self._invalidate()
         self._runtime_params = tree_map(self._t, params)
         self._runtime_params_batched = batched
 
@@ -321,7 +324,27 @@ class NLMPC:
     # solve
     # ------------------------------------------------------------------
     def _invalidate(self):
+        self._traj_plan = None, False  # (plan, probed?)
         self._budgeter.reset()  # new configuration -> new calibration
+
+    def _get_traj_plan(self):
+        """Probe-once cache of the trajectory-structure plan
+        (``ops/trajectory_kkt.make_plan``): enables the banded inner-QP
+        engine when the NLP's sparsity is verified stage-local.  Invalidated
+        by every setter that can change the structure."""
+        plan, probed = self._traj_plan
+        if probed:
+            return plan
+        p = self._runtime_params
+        if self._runtime_params_batched and p is not None:
+            # probe with a single instance's parameters
+            p = tree_map(lambda a: a[0], p)
+        plan = trajectory_kkt.make_plan(
+            self.dims, self._fns, self._state_scaling, self._input_scaling,
+            self._params.hessian_reg, self.dtype, p=p,
+        )
+        self._traj_plan = plan, True
+        return plan
 
     def _nlp_fns(self):
         """The NLP as per-instance functions ``fn(z, x0, p)`` for the SQP."""
@@ -354,6 +377,7 @@ class NLMPC:
         ss, us = self._state_scaling, self._input_scaling
         params = params if params is not None else self._params
         f_fn, ceq_fn, cin_fn = self._nlp_fns()
+        plan = self._get_traj_plan()
         p_dim = 0 if p_batched else None
 
         guess = nlp.initial_guess(dims, x0, u0, slack0, self.dtype)
@@ -364,14 +388,14 @@ class NLMPC:
 
         solve = lambda **kw: sqp.sqp_solve(
             f_fn, ceq_fn, cin_fn, z, lb, ub, params, iter_budget=iter_budget,
-            fn_args=(x0, p), fn_in_dims=(0, p_dim), **kw)
+            fn_args=(x0, p), fn_in_dims=(0, p_dim), traj_plan=plan, **kw)
         B = x0.shape[0]
         max_it = params.maximum_iteration
         cap = max(_COMPACT_MIN_BATCH, (B // 4 // _COMPACT_MIN_BATCH) * _COMPACT_MIN_BATCH)
         if (params.compact_stragglers and B >= _COMPACT_MIN_BATCH
                 and max_it > 2 * _CHUNK and cap < B):
             sol = self._solve_compacted(solve, f_fn, ceq_fn, cin_fn, z, x0, p, p_dim,
-                                        lb, ub, params, iter_budget, cap)
+                                        lb, ub, params, iter_budget, cap, plan)
         else:
             sol = solve()
 
@@ -385,7 +409,7 @@ class NLMPC:
         return sol, X, U, Y, slack, feas
 
     def _solve_compacted(self, solve, f_fn, ceq_fn, cin_fn, z, x0, p, p_dim, lb, ub,
-                         params, iter_budget, cap):
+                         params, iter_budget, cap, plan):
         """Batched solve with straggler compaction: short full-batch chunks
         of the SQP loop until the unconverged count falls to ``cap``, then
         gather those lanes and finish only them (the slowest few no longer
@@ -412,7 +436,7 @@ class NLMPC:
                 carry_in=sqp.Carry(*(take(a) for a in carry)),
                 return_carry=True,
                 fn_args=(take(x0), tree_map(take, p) if p_dim == 0 else p),
-                fn_in_dims=(0, p_dim))
+                fn_in_dims=(0, p_dim), traj_plan=plan)
             carry = sqp.Carry(*(a.index_copy(0, idx, b) for a, b in zip(carry, sub)))
         return solve(carry_in=carry, it_hi=0)
 

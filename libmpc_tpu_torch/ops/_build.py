@@ -27,7 +27,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("admm_fused.cu", "chol_inverse.cu", "qp_inner.cu")
+SOURCES = ("admm_fused.cu", "chol_inverse.cu", "qp_inner.cu", "traj_factor.cu",
+           "traj_sweep.cu")
 HEADERS = ("chol_warp.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +59,12 @@ _SIGNATURES = {
     # stream
     "libmpc_qp_inner_f32": [_P] * 18 + [_I] * 3 + [_D] * 4 + [_I] * 4 + [_P],
     "libmpc_qp_inner_f64": [_P] * 18 + [_I] * 3 + [_D] * 4 + [_I] * 4 + [_P],
+    # D L C G | Sinv X Ghat | B ph bs bs_p w threads | stream
+    "libmpc_traj_factor_f32": [_P] * 7 + [_I] * 6 + [_P],
+    "libmpc_traj_factor_f64": [_P] * 7 + [_I] * 6 + [_P],
+    # Sinv L X Ghat_inv r_stage r_g | xs g | B ph bs w warps | stream
+    "libmpc_traj_sweep_f32": [_P] * 8 + [_I] * 5 + [_P],
+    "libmpc_traj_sweep_f64": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

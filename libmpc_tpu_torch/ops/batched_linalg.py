@@ -15,15 +15,20 @@ factorization is a chain of k dependent steps on a few KB, so latency, not
 bandwidth, sets its time.  The TPU's batch-in-lanes layout does not carry
 over; the kernel gives each matrix one warp, which keeps it in shared
 memory and works on its rows (factorization) and columns (triangular
-solves) in parallel.  It takes k <= 64 (:func:`kernel_supported`); the
-blocked Schur recursion the JAX package uses past its own gate is not
-ported yet, so a larger batched system on the card raises.
+solves) in parallel.  It takes k <= 64 (:func:`kernel_supported`); past
+that :func:`chol_inverse_blocked` runs the 2x2 block Schur recursion of
+``batched_linalg.py:125`` (``_chol_inverse_blocked``): the 48-wide diagonal
+blocks go through the kernel, the off-diagonal products are ``torch.bmm``
+(the JAX package computes those outside its Pallas kernel too).
 
 :func:`spd_inverse` and :func:`spd_solve` are batch-first: an unbatched
 (n, n) matrix uses ``torch.linalg.cholesky`` (XLA's Cholesky in the JAX
-package), a batched one routes to :func:`chol_inverse`.  Their callers are
-the SQP's second-order correction (``ops/sqp.py``, k = me) and the float32
-interior point (``ops/pdip.py``, k = nz + 1 and k = me).
+package), a batched one routes to :func:`chol_inverse` or, on the card past
+the kernel's gate, to :func:`chol_inverse_blocked`.  Their callers are the
+SQP's second-order correction (``ops/sqp.py``, k = me), the float32 interior
+point (``ops/pdip.py``, k = nz + 1 and k = me) and the border Schur
+complement of the banded-KKT factorization (``ops/trajectory_kkt.py``,
+k = nu + 2).
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch
 from . import _build
 
 MAX_K = 64
+# diagonal-block width of the blocked recursion (the JAX package's _BLOCK_K)
+BLOCK_K = 48
 
 
 def kernel_supported(k: int) -> bool:
@@ -86,13 +93,41 @@ def chol_inverse(C):
 chol_inverse.launches = 0
 
 
+def chol_inverse_blocked(C, block_k: int = BLOCK_K, leaf_k: int = MAX_K):
+    """Explicit inverse of a batch of SPD matrices (B, k, k) of any k by 2x2
+    block Schur recursion: a matrix of k <= ``leaf_k`` goes to
+    :func:`chol_inverse`; a larger one splits off its leading ``block_k``
+    diagonal block, inverts it the same way, recurses on the symmetrized
+    Schur complement, and does everything else as batched matrix products::
+
+        [A  B]^-1  =  [Ai + AiB Si AiB'   -AiB Si]
+        [B' D]        [   -Si AiB'            Si ],
+        Ai = A^-1,  S = D - B' Ai B,  Si = S^-1,  AiB = Ai B.
+
+    On the card the leaves launch the kernel (``block_k <= leaf_k <= 64``);
+    on the CPU they run the twin, which a test drives with small blocks.
+    """
+    k = C.shape[-1]
+    if not 1 <= block_k <= leaf_k:
+        raise ValueError(f"need 1 <= block_k <= leaf_k, got {block_k}, {leaf_k}")
+    if k <= leaf_k:
+        return chol_inverse(C.contiguous())
+    A = C[:, :block_k, :block_k]
+    Bb = C[:, :block_k, block_k:]
+    D = C[:, block_k:, block_k:]
+    Ai = chol_inverse_blocked(A, block_k, leaf_k)
+    AiB = Ai @ Bb
+    S = D - Bb.transpose(1, 2) @ AiB
+    Si = chol_inverse_blocked(0.5 * (S + S.transpose(1, 2)), block_k, leaf_k)
+    AiBSi = AiB @ Si
+    top = torch.cat([Ai + AiBSi @ AiB.transpose(1, 2), -AiBSi], dim=2)
+    bot = torch.cat([-AiBSi.transpose(1, 2), Si], dim=2)
+    return torch.cat([top, bot], dim=1)
+
+
 def _batched_inverse(M):
     if M.device.type == "cuda" and not kernel_supported(M.shape[-1]):
-        raise NotImplementedError(
-            f"batched SPD inverse of k={M.shape[-1]} > {MAX_K} on the card: the "
-            "blocked Schur recursion of libmpc_tpu/ops/batched_linalg.py:125 is "
-            "not ported yet (ROADMAP.md queue 1: K2's blocked recursion)"
-        )
+        return chol_inverse_blocked(M)
     return chol_inverse(M)
 
 

@@ -12,8 +12,9 @@ quadratic programming with an l1-merit line search:
   (``"power"``), a constant objective-Hessian model (``"gauss_newton"``) and
   damped BFGS (``"bfgs"``, SLSQP's own family) are selectable;
 * the inner QP is the fused whole-solve ADMM kernel
-  (``ops/qp_inner_fused.py``, float32) or the interior-point method
-  (``ops/pdip.py``), warm-started across SQP iterations;
+  (``ops/qp_inner_fused.py``, float32), the banded-KKT interior point
+  (``ops/trajectory_kkt.py``, for NLPs whose stage-local structure the
+  controller verified) or the dense interior-point method (``ops/pdip.py``);
 * the line search is a lazy backtracking loop trying [unit step,
   second-order-correction candidate, halvings] and stopping at the first
   Armijo pass.
@@ -41,7 +42,7 @@ import torch
 from torch.func import grad_and_value, hessian, jacfwd, vmap
 
 from ..types import LParameters, NLParameters
-from . import _host, admm, batched_linalg, pdip, qp_inner_fused
+from . import _host, admm, batched_linalg, pdip, qp_inner_fused, trajectory_kkt
 from .pdip import _mv, _vm
 
 # -- nlopt result values (nlopt.hpp) ----------------------------------------
@@ -59,6 +60,12 @@ _INTERNAL_ACC = 1e-7  # optimality tolerance when no user tol is set
 _MAX_LS_FAILS = 4
 _MAX_STALL = 6
 _ARMIJO_C1 = 1e-4
+# The second-order correction solves its me x me system exactly up to this
+# size and by 16 steps of CG above it.  The number is the JAX package's (its
+# Pallas Cholesky kernel's VMEM gate, 6 k^2 128 4 <= 8 MiB), kept as a
+# constant of the algorithm: which solve a lane gets decides its trial step,
+# and must not depend on what this port's CUDA kernel can take.
+_SOC_EXACT_MAX = 52
 
 _HESSIAN_MODES = ("gershgorin", "eigh", "power", "gauss_newton", "bfgs")
 
@@ -193,42 +200,65 @@ def _qp_params(f32: bool = False) -> LParameters:
     )
 
 
-def inner_engine(params: NLParameters, dtype: torch.dtype, nz: int, m_qp: int) -> str:
-    """The inner-QP engine a solve runs: ``"fused"`` or ``"pdip"``.
+def plan_applies(traj_plan, params: NLParameters, nz: int, me: int, mi: int) -> bool:
+    """Whether the banded-KKT engine may serve this solve: the controller
+    verified the structure, the curvature mode preserves it (``eigh`` fills
+    in, ``bfgs`` is dense by construction) and the shapes match the plan."""
+    return (
+        traj_plan is not None
+        and params.hessian_reg in ("gauss_newton", "gershgorin", "power")
+        and me == traj_plan.ph * traj_plan.nx
+        and mi == traj_plan.mi
+        and nz == traj_plan.nz
+    )
 
-    Routing of ``libmpc_tpu/ops/sqp.py:225-263`` for the engines this port
-    has: a float64 solve asking for the single-precision fused kernel gets
-    the interior-point engine (an f32 inner direction cannot drive the outer
-    loop to 1e-7 stationarity).  Requests this port cannot serve raise; none
-    quietly becomes another engine.
+
+def inner_engine(params: NLParameters, dtype: torch.dtype, nz: int, m_qp: int,
+                 plan_ok: bool = False) -> str:
+    """The inner-QP engine a solve runs: ``"fused"``, ``"riccati"`` or
+    ``"pdip"``.
+
+    Routing of ``libmpc_tpu/ops/sqp.py:225-263``.  ``plan_ok`` says that the
+    controller verified the NLP's banded structure, the curvature mode keeps
+    it and the shapes match the plan.  Then an explicit ``"riccati"`` request
+    runs the banded-KKT interior point, and so does a ``"fused"`` request
+    the fused kernel cannot serve (float64, or past its size gate).  Without
+    a plan ``"riccati"`` degrades to ``"pdip"``, a float64 ``"fused"``
+    request runs ``"pdip"`` (an f32 inner direction cannot drive the outer
+    loop to 1e-7 stationarity), and a float32 ``"fused"`` request past the
+    gate raises, because the engine the JAX package gives it (the inner
+    ``"admm"``) is not ported; no request quietly becomes another engine
+    than the JAX package's.
+
+    The fused gate is the card's (``qp_inner_fused.supported``: one instance
+    within a block's shared memory), not the TPU kernel's VMEM gate, so a
+    mid-size problem may take the fused kernel here and the banded engine in
+    the JAX package.
     """
-    if params.inner_qp == "pdip":
-        return "pdip"
-    if params.inner_qp == "fused":
-        if dtype != torch.float32:
-            return "pdip"
-        if not qp_inner_fused.supported(nz, m_qp, dtype):
-            raise NotImplementedError(
-                f"inner_qp='fused': a subproblem of n={nz}, m={m_qp} is past the "
-                "fused kernel's shared-memory gate (qp_inner_fused.supported), and "
-                "the engines the JAX package routes it to (the banded-KKT "
-                "'riccati' engine of ops/trajectory_kkt.py with the kernels of "
-                "ops/trajectory_sweeps.py, or the inner 'admm' engine) are not "
-                "ported yet: ROADMAP.md queue 2, items K4/K5 and inner_qp='admm'"
-            )
-        return "fused"
+    if params.inner_qp not in ("fused", "pdip", "riccati", "admm"):
+        raise ValueError(f"unknown inner_qp {params.inner_qp!r}")
     if params.inner_qp == "admm":
         raise NotImplementedError(
             "inner_qp='admm' is not ported yet: the port's ops.admm.admm_solve "
             "shares one (P, A) across the batch and the SQP subproblems are per "
             "instance (ROADMAP.md queue 1: inner_qp='admm')"
         )
-    if params.inner_qp == "riccati":
-        raise NotImplementedError(
-            "inner_qp='riccati' is not ported yet: ops/trajectory_kkt.py and the "
-            "kernels of ops/trajectory_sweeps.py (ROADMAP.md queue 2, K4/K5)"
-        )
-    raise ValueError(f"unknown inner_qp {params.inner_qp!r}")
+    f32 = dtype == torch.float32
+    fused_req = params.inner_qp == "fused"
+    use_fused = fused_req and f32 and qp_inner_fused.supported(nz, m_qp, dtype)
+    if plan_ok and (params.inner_qp == "riccati" or (fused_req and not use_fused)):
+        return "riccati"
+    if params.inner_qp in ("pdip", "riccati") or (fused_req and not f32):
+        return "pdip"
+    if use_fused:
+        return "fused"
+    raise NotImplementedError(
+        f"inner_qp='fused': a subproblem of n={nz}, m={m_qp} is past the "
+        "fused kernel's shared-memory gate (qp_inner_fused.supported) and the "
+        "NLP has no verified banded structure for the 'riccati' engine; the "
+        "JAX package routes such a request to the inner 'admm' engine, which "
+        "is not ported yet (ROADMAP.md queue 1: inner_qp='admm')"
+    )
 
 
 def sqp_solve(
@@ -245,6 +275,7 @@ def sqp_solve(
     return_carry: bool = False,
     fn_args: Sequence = (),
     fn_in_dims: Sequence = (),
+    traj_plan: Optional[trajectory_kkt.TrajPlan] = None,
 ):
     """Solve  min f(z)  s.t.  ceq(z)=0, cin(z)<=0, lb<=z<=ub  from z0, for a
     batch of instances.
@@ -267,6 +298,10 @@ def sqp_solve(
     ``return_carry=True`` returns the raw :class:`Carry` for a later resume
     instead of an :class:`SQPSolution`.  Chunking the loop this way
     partitions the exact same per-lane iteration sequence.
+
+    ``traj_plan`` is the controller's verified description of the NLP's
+    stage-local structure (``trajectory_kkt.make_plan``), or None; with it
+    the banded-KKT engine is available (see :func:`inner_engine`).
 
     Runs with TF32 off — the Hopper form of the JAX package's ``highest``
     matmul precision: a product that keeps three digits cannot drive an
@@ -309,7 +344,8 @@ def sqp_solve(
         v_hess_L = vmap(hessian(lagrangian), in_dims=(0, 0, 0) + tuple(fn_in_dims))
 
     f32 = dtype == torch.float32
-    engine = inner_engine(params, dtype, nz, m_qp)
+    engine = inner_engine(params, dtype, nz, m_qp,
+                          plan_applies(traj_plan, params, nz, me, mi))
     qp_par = _qp_params(f32)
     acc = 1e-5 if f32 else _INTERNAL_ACC
     sqrt_acc = math.sqrt(acc)
@@ -365,6 +401,10 @@ def sqp_solve(
         # curvature and preserves the per-lane iteration sequence.
         Hf = vmap(hessian(f_fn), in_dims=in_dims)(z0, *args)
         B_gn = _gershgorin_convexify(0.5 * (Hf + Hf.transpose(1, 2)))
+        # banded engine: the stage-block extraction of the CONSTANT curvature
+        # matrix is done here, once per solve, not in every SQP iteration
+        gn_blocks = (trajectory_kkt._h_blocks(traj_plan, B_gn)
+                     if engine == "riccati" else None)
 
     def body(s: Carry, active) -> Carry:
         g, f = v_grad_f(s.z, *args)
@@ -425,7 +465,43 @@ def sqp_solve(
         # -- QP subproblem:  min 1/2 d'Bd + g'd
         #    s.t. Je d = -ce ; Ji d <= -ci ; lb-z <= d <= ub-z ---------------
         finite = lambda v: torch.all(torch.isfinite(v), dim=-1)
-        if engine == "pdip":
+        if engine == "riccati":
+            # banded-KKT interior point: the same elastic-relaxed Mehrotra
+            # IPM as the pdip engine (identical to machine precision,
+            # tests/test_torch_trajectory_kkt.py), with every Newton system
+            # solved by the stage recursion instead of dense inverses.  Box
+            # bounds stay implicit (diagonal barrier weights), so no
+            # (2nz, nz) identity rows are materialized.
+            ci_pos = torch.clamp(ci, min=0.0)
+            dual_scale = torch.amax(
+                torch.cat([torch.abs(s.lam_e), torch.abs(s.lam_i), s.mu_e, s.mu_i,
+                           torch.ones((Bt, 1), **kw)], dim=1), dim=1)
+            rho_q = (1e4 if f32 else 1e8) * dual_scale * (
+                1.0 + torch.sum(torch.abs(ce), dim=1) + torch.sum(ci_pos, dim=1))
+            # IPM cap policy: flat ``inner_iters`` (45 when unset); a lane
+            # whose previous direction failed the line search gets the deep
+            # cap ``inner_iters_recovery``, clamped so that it never
+            # de-escalates.  The rollout's compacted rescue
+            # (NLParameters.rescue_iters) is the two-phase alternative.
+            it_base = params.inner_iters or 45
+            it_deep = max(params.inner_iters_recovery or it_base, it_base)
+            ipm_cap = torch.where(s.ls_fails > 0, it_deep, it_base).to(torch.int32)
+            ip = trajectory_kkt.ipm_solve(
+                traj_plan, Bm, g, Je, ce, Ji, ci, lb - s.z, ub - s.z, rho_q,
+                n_iters=max(it_base, it_deep), lane_cap=ipm_cap,
+                eps=1e-7 if f32 else 1e-10,
+                h_blocks=gn_blocks if use_gn else None,
+                # no dual warm start, as the JAX package: the non-central
+                # start costs SQP iterations (ipm_solve's warm_y hook stays)
+                warm_y=None,
+            )
+            ip_ok = finite(ip.d) & finite(ip.nu) & finite(ip.lam)
+            d = _sel(ip_ok, ip.d, torch.zeros_like(s.z))
+            lam_e = _sel(ip_ok, ip.nu, s.lam_e)
+            lam_i = _sel(ip_ok, ip.lam, s.lam_i)
+            qp_x_new = d
+            qp_y_new = s.qp_y
+        elif engine == "pdip":
             # interior-point engine: box bounds folded into inequality rows
             # (+-identity), infinite bounds masked out of the barrier.
             #
@@ -528,12 +604,12 @@ def sqp_solve(
         # (curvature-induced) equality residual with a least-norm correction.
         # Computed ONCE per iteration, outside the line-search loop.
         ce_full = v_ceq(s.z + d, *args)
-        if batched_linalg.kernel_supported(me):
+        if me <= _SOC_EXACT_MAX:
             # SPD solve through the batched Cholesky-inverse kernel
             JJt = Je @ Je.transpose(1, 2) + 1e-10 * torch.eye(me, **kw)
             soc_corr = batched_linalg.spd_solve(JJt, ce_full)
         else:
-            # me past the Cholesky kernel's gate: matrix-free CG on Je Je' —
+            # me past the exact solve's size: matrix-free CG on Je Je' —
             # two (me, nz) matvecs per iteration, never forms or factors the
             # dense me^2 system.  The SOC is a trial candidate, not the step
             # itself, so a fixed-iteration approximate solve is sufficient;

@@ -235,9 +235,15 @@ class NLParameters(Parameters):
 
     The field names, defaults and the measurements quoted in the comments
     are the JAX package's (taken on a TPU).  In this port ``inner_qp="fused"``
-    is the hand-written CUDA kernel of ``ops/qp_inner_fused.py`` (float32;
-    float64 solves use ``"pdip"``), and ``"admm"`` and ``"riccati"`` raise
-    ``NotImplementedError`` until they are ported.
+    is the hand-written CUDA kernel of ``ops/qp_inner_fused.py`` (float32,
+    up to the size one instance fits a block's shared memory) and
+    ``"riccati"`` the banded-KKT interior point of ``ops/trajectory_kkt.py``
+    through the CUDA kernels of ``ops/trajectory_sweeps.py``, which also
+    serves a ``"fused"`` request in float64 or past that size when the
+    controller verified the NLP's stage-local structure (routing:
+    ``ops/sqp.py::inner_engine``).  ``"admm"``, and with it an oversize
+    float32 ``"fused"`` request without a verified structure, raises
+    ``NotImplementedError`` until it is ported.
 
     ``hessian_reg`` (TPU-native extension) selects the curvature model of
     the QP subproblem:
@@ -320,7 +326,7 @@ class NLParameters(Parameters):
     # lanes whose solve FAILED — at most max(16, B//16) of them — and
     # re-solves only those from the same entry state with the IPM cap set
     # to this value, scattering the recovered results back.  A step with
-    # no failures skips the rescue entirely (scalar lax.cond), so the
+    # no failures skips the rescue entirely, so the
     # deep cap is paid only where a lane actually failed, at compacted
     # batch cost instead of full-batch lockstep cost.
     rescue_iters: int = 0

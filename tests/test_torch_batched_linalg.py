@@ -73,9 +73,9 @@ def test_kernel_gate_and_non_cpu_devices_never_reach_the_twin():
 
 
 def test_batched_routes_past_the_kernel_gate_run_the_twin_on_cpu():
-    """k > 64 has no kernel (the blocked recursion is not ported): CPU
-    tensors run the twin at any k; the refusal on the card is in
-    tests/test_torch_cuda.py."""
+    """k > 64 is past the kernel's gate: CPU tensors run the twin at any k;
+    on the card the same call runs the blocked recursion
+    (tests/test_torch_cuda.py)."""
     Mb = torch.as_tensor(_spd_batch(3, 70, seed=8, dtype=np.float64))
     rb = torch.ones((3, 70), dtype=torch.float64)
     np.testing.assert_allclose(tbl.spd_inverse(Mb).numpy(), np.linalg.inv(Mb.numpy()),
@@ -83,3 +83,32 @@ def test_batched_routes_past_the_kernel_gate_run_the_twin_on_cpu():
     np.testing.assert_allclose(tbl.spd_solve(Mb, rb).numpy(),
                                np.linalg.solve(Mb.numpy(), rb.numpy()[..., None])[..., 0],
                                atol=1e-11)
+
+
+@pytest.mark.parametrize("k,block_k,leaf_k", [(130, 48, 64), (130, 7, 9), (65, 48, 64),
+                                              (40, 48, 64)])
+def test_blocked_recursion_matches_numpy(k, block_k, leaf_k):
+    """``chol_inverse_blocked`` (the 2x2 block Schur recursion of
+    ``libmpc_tpu/ops/batched_linalg.py:125``) against ``numpy.linalg.inv``,
+    float64, at k = 130 with the kernel's block sizes and with forced small
+    ones (many levels), at k = 65 (one split) and under the leaf size (no
+    split); leaves run the twin on CPU tensors."""
+    C = _spd_batch(5, k, seed=k, dtype=np.float64)
+    got = tbl.chol_inverse_blocked(torch.as_tensor(C), block_k, leaf_k).numpy()
+    assert got.shape == (5, k, k)
+    np.testing.assert_allclose(got, np.linalg.inv(C), rtol=0, atol=1e-11)
+    np.testing.assert_allclose(got, np.swapaxes(got, 1, 2), rtol=0, atol=1e-12)
+
+
+def test_blocked_recursion_matches_jax_float32_and_checks_its_blocks():
+    """Against the JAX package's ``_chol_inverse_blocked`` (its Pallas leaves
+    in interpret mode), float32, k = 70: two float32 inverses of
+    well-conditioned matrices."""
+    C = _spd_batch(4, 70, seed=11)
+    want = np.asarray(jbl._chol_inverse_blocked(jnp.asarray(C), interpret=True))
+    got = tbl.chol_inverse_blocked(torch.as_tensor(C)).numpy()
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    with pytest.raises(ValueError, match="block_k"):
+        tbl.chol_inverse_blocked(torch.as_tensor(C), block_k=70, leaf_k=64)
+    assert tbl.BLOCK_K == jbl._BLOCK_K

@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain twins, on the card.
+"""The five CUDA kernels against their plain twins, on the card.
 
 These tests need a CUDA device and nvcc; without them they skip.  They
 import neither JAX nor the JAX package, so on a machine without JAX run
@@ -7,11 +7,17 @@ them without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the repository root's smoke script; imports no JAX)
 from libmpc_tpu_torch.ops import admm_fused, batched_linalg, qp_inner_fused
+from libmpc_tpu_torch.ops import trajectory_sweeps as tsw
 
 pytestmark = pytest.mark.cuda
 
@@ -177,8 +183,103 @@ def test_qp_inner_refuses_a_size_past_its_gate(cuda):
 
 
 def test_batched_spd_routes_refuse_k_past_the_kernel_gate(cuda):
+    """The kernel itself still refuses k > 64; the batched SPD routes no
+    longer do: they run the blocked recursion through the kernel's leaves."""
     M = torch.eye(70, device=cuda).expand(2, 70, 70).contiguous()
-    with pytest.raises(NotImplementedError, match="blocked Schur recursion"):
-        batched_linalg.spd_inverse(M)
-    with pytest.raises(NotImplementedError, match="blocked Schur recursion"):
-        batched_linalg.spd_solve(M, torch.ones((2, 70), device=cuda))
+    with pytest.raises(ValueError, match="k <= 64"):
+        batched_linalg.chol_inverse(M)
+    launches = batched_linalg.chol_inverse.launches
+    inv = batched_linalg.spd_inverse(M)
+    x = batched_linalg.spd_solve(M, torch.ones((2, 70), device=cuda))
+    torch.cuda.synchronize()
+    assert batched_linalg.chol_inverse.launches >= launches + 4
+    assert (inv - M).abs().max().item() <= 1e-6 and (x - 1.0).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("k", [130, 302])
+def test_blocked_chol_inverse_matches_twin(cuda, dtype, tol, k):
+    rng = np.random.default_rng(k)
+    Q = rng.normal(size=(33, k, k))
+    C = torch.as_tensor(Q @ Q.transpose(0, 2, 1) / k + 0.5 * np.eye(k), dtype=dtype,
+                        device=cuda)
+    got = batched_linalg.chol_inverse_blocked(C)
+    want = batched_linalg.chol_inverse_plain(C)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def _traj_data(B, ph, bs_p, nx, w, dtype, device, seed=0, terms=None):
+    """Quasi-definite bordered block-tridiagonal stage blocks: the generator
+    of ``chip_smoke.traj_blocks`` (one copy serves the smoke run and these
+    tests)."""
+    return [torch.as_tensor(t, dtype=dtype, device=device)
+            for t in chip_smoke.traj_blocks(B, ph, bs_p, nx, w, seed, terms)]
+
+
+_TRAJ_SHAPES = [(37, 6, 5, 3, 4), (64, 20, 18, 12, 8), (5, 1, 3, 2, 3)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("B,ph,bs_p,nx,w", _TRAJ_SHAPES)
+def test_traj_factor_kernel_matches_twin(cuda, dtype, tol, B, ph, bs_p, nx, w):
+    """K4: Sinv, X and the symmetrized border Schur complement within ``tol``
+    of the twin's scale; ragged batch, the oscillators' shape and a single
+    stage."""
+    data = _traj_data(B, ph, bs_p, nx, w, dtype, cuda)
+    launches = tsw.batched_factor.launches
+    got = tsw.batched_factor(*data, bs_p)
+    want = tsw.traj_factor_plain(*data, bs_p)
+    torch.cuda.synchronize()
+    assert tsw.batched_factor.launches == launches + 1
+    sym = lambda M: 0.5 * (M + M.transpose(1, 2))
+    for g, w_ in ((got[0], want[0]), (got[1], want[1]), (sym(got[2]), sym(want[2]))):
+        assert (g - w_).abs().max().item() <= tol * w_.abs().max().item()
+
+
+def test_traj_factor_float32_is_as_close_to_float64_as_its_twin(cuda):
+    """On the ill-conditioned six-term blocks of the reference's test at the
+    oscillators' width two float32 evaluations part at 1e-3; the kernel may be
+    no further from the float64 twin than three times the float32 twin is."""
+    t32 = _traj_data(256, 20, 18, 12, 8, torch.float32, cuda, seed=7, terms=6)
+    kernel, twin, _ = chip_smoke.k4_float32_against_float64(torch, tsw, t32, 18)
+    assert kernel.max() <= 3.0 * twin.max()
+    assert np.median(kernel.max(axis=0)) <= 3.0 * np.median(twin.max(axis=0))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("B,ph,bs_p,nx,w", _TRAJ_SHAPES)
+def test_traj_sweep_kernel_matches_twin(cuda, dtype, tol, B, ph, bs_p, nx, w):
+    """K5 on the twin's float64 factors of the same data: xs and g within
+    ``tol`` of (scale + 1)."""
+    D, L, C, G = _traj_data(B, ph, bs_p, nx, w, torch.float64, cuda, seed=1)
+    Sinv, X, Ghat = tsw.traj_factor_plain(D, L, C, G, bs_p)
+    Gi = torch.linalg.inv(0.5 * (Ghat + Ghat.transpose(1, 2)))
+    rng = np.random.default_rng(2)
+    rs = torch.as_tensor(rng.normal(size=(B, ph, bs_p + nx)), device=cuda)
+    rg = torch.as_tensor(rng.normal(size=(B, w)), device=cuda)
+    args = [t.to(dtype).contiguous() for t in (Sinv, L, X, Gi, rs, rg)]
+    launches = tsw.batched_sweep_solve.launches
+    got = tsw.batched_sweep_solve(*args)
+    want = tsw.traj_solve_plain(*args)
+    torch.cuda.synchronize()
+    assert tsw.batched_sweep_solve.launches == launches + 1
+    scale = want[0].abs().max().item() + 1.0
+    for g, w_ in zip(got, want):
+        assert (g - w_).abs().max().item() <= tol * scale
+
+
+def test_traj_kernels_refuse_what_they_do_not_take(cuda):
+    z = lambda *s: torch.zeros(s, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsw.batched_factor(z(1, 2, 300, 300), z(1, 1, 300, 300), z(1, 2, 300, 8), z(1, 8, 8), 200)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsw.batched_sweep_solve(z(1, 2, 400, 400), z(1, 1, 400, 400), z(1, 2, 400, 8),
+                                z(1, 8, 8), z(1, 2, 400), z(1, 8))
+    with pytest.raises(TypeError):
+        tsw.batched_factor(*(t.half() for t in _traj_data(2, 3, 3, 2, 3, torch.float32, cuda)), 3)
+    D, L, C, G = _traj_data(2, 3, 3, 2, 3, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsw.batched_factor(D.transpose(2, 3), L, C, G, 3)
+    with pytest.raises(ValueError, match="L must be"):
+        tsw.batched_factor(D, L[:, :1], C, G, 3)

@@ -66,7 +66,8 @@ def plant_np(x, u, noise):
 
 def test_vdp_20_step_golden_float64():
     """tests/test_golden_trajectories.py::test_vdp_20_step_commands through
-    the port: within 1e-6 of ``vdp_cmds`` (float64, pdip inner engine)."""
+    the port: within 1e-6 of ``vdp_cmds`` (float64, so the default fused
+    request runs the banded-KKT interior point)."""
     c = torch_vdp(maximum_iteration=100)
     x, u = np.array([0.0, 1.0]), np.zeros(1)
     for k in range(20):
@@ -84,7 +85,8 @@ def test_vdp_20_step_golden_float64():
 
 def test_closed_loop_matches_jax_float64():
     """A 5-step batched Van der Pol loop with the bench's settings in
-    float64 (the fused request runs pdip): per-lane statuses and SQP
+    float64 (the fused request runs the banded-KKT interior point in both
+    packages, the probe having verified the structure): per-lane statuses and SQP
     iteration counts equal the JAX package's, commands, costs and sequences
     within 1e-9."""
     B, K = 6, 5
@@ -275,8 +277,47 @@ def test_entry_points_default_to_the_card_and_raise_without_one(build):
         build()
 
 
-@pytest.mark.parametrize("inner,match", [("admm", "inner_qp='admm'"), ("riccati", "K4/K5")])
+def _long_vdp(coupled, **params):
+    """Van der Pol at ph = 60: n = 126, m = 307, past the fused kernel's
+    shared-memory gate.  ``coupled`` adds (sum U)^2, which the structure
+    probe rejects."""
+    c = torch_vdp(torch.float32, ph=60, ch=5, **params)
+    if coupled:
+        c.set_objective_function(lambda X, Y, U, e: torch.sum(X**2) + torch.sum(U) ** 2)
+    return c
+
+
+@pytest.mark.parametrize("inner,match", [("admm", "inner_qp='admm'"),
+                                         ("fused", "shared-memory gate")])
 def test_engine_requests_that_raise(inner, match):
-    c = torch_vdp(torch.float32, maximum_iteration=5, inner_qp=inner)
-    with pytest.raises(NotImplementedError, match=match):
-        c.optimize(np.array([0.0, 1.0]), np.zeros(1))
+    """The inner ``"admm"`` engine is not ported, and an oversize float32
+    ``"fused"`` request without a verified banded plan is routed to it by the
+    JAX package: both raise and name ROADMAP.md."""
+    c = _long_vdp(True, maximum_iteration=5, inner_qp=inner)
+    assert c._get_traj_plan() is None
+    with pytest.raises(NotImplementedError, match=match) as exc:
+        c.optimize(np.zeros(2), np.zeros(1))
+    assert "ROADMAP.md" in str(exc.value)
+
+
+def test_oversize_fused_request_with_a_plan_runs_the_banded_engine():
+    """The same size with a stage-local objective: the float32 ``"fused"``
+    request past the gate is served by the banded-KKT engine, as in the JAX
+    package (``libmpc_tpu/ops/sqp.py:248-250``); an explicit ``"riccati"``
+    request takes the same path."""
+    from libmpc_tpu_torch.ops import trajectory_kkt as ttk
+
+    x = np.array([[0.3, -0.2], [0.1, 0.4]])
+    cmds = []
+    for inner in ("fused", "riccati"):
+        c = _long_vdp(False, maximum_iteration=20, inner_qp=inner)
+        assert c._get_traj_plan() == ttk.TrajPlan(ph=60, ch=5, nx=2, nu=1, mi=61)
+        ttk.ipm_solve.trace = []
+        try:
+            r = c.optimize(x, np.zeros((2, 1)))
+            assert len(ttk.ipm_solve.trace) == int(c._last_iters.max())
+        finally:
+            ttk.ipm_solve.trace = None
+        assert r.cmd.dtype == torch.float32 and (r.status == 0).all()
+        cmds.append(r.cmd)
+    assert torch.equal(cmds[0], cmds[1])

@@ -79,7 +79,7 @@ def test_nlmpc_rollout_unbatched_params_fn_and_rescue_message(capsys):
         u = b.optimize(x, u).cmd
         assert torch.allclose(u, r.inputs[k], rtol=0, atol=1e-12)
         x = plant(x, u, k)
-    c = torch_vdp(rescue_iters=60, **kw)
+    c = torch_vdp(rescue_iters=60, inner_qp="pdip", **kw)
     lt.Logger._reset_for_tests()
     lt.Logger.instance().set_level(lt.LogLevel.NORMAL)
     try:
@@ -87,6 +87,66 @@ def test_nlmpc_rollout_unbatched_params_fn_and_rescue_message(capsys):
     finally:
         lt.Logger._reset_for_tests()
     assert "rescue phase disabled" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("B,over", [(64, False), (192, True)])
+def test_nlmpc_rollout_rescue_matches_jax_float64(B, over):
+    """The compacted two-phase rescue: a cap of 2 interior-point iterations
+    makes some lanes fail the fast phase of the second step, and the rescue
+    re-solves them at a cap of 45.  Statuses, summed iteration counts,
+    commands and states equal the JAX package's ``nlmpc_rollout``; at
+    B = 192 more lanes fail than the rescue takes (16), so the highest
+    failed lanes keep their hold-last-command result in both packages."""
+    K = 2
+    kw = dict(maximum_iteration=12, enable_warm_start=True, inner_qp="riccati",
+              hessian_reg="gershgorin", inner_iters=2, inner_iters_recovery=2,
+              rescue_iters=45)
+    x0, noise = vdp_inputs(B, K)
+    x0 = 2.0 * x0
+    jn = jnp.asarray(noise)
+    jplant = lambda x, u, k: x + 0.1 * jax.vmap(jvdp, in_axes=(0, 0, None))(x, u, k) + jn[k]
+    rj = jax_nlmpc_rollout(jax_vdp(**kw), jplant, x0, np.zeros((B, 1)), K)
+    lt.nlmpc_rollout.rescued = []
+    try:
+        rt = lt.nlmpc_rollout(torch_vdp(**kw), torch_plant(torch.as_tensor(noise)), x0,
+                              np.zeros((B, 1)), K)
+        counts = lt.nlmpc_rollout.rescued
+    finally:
+        lt.nlmpc_rollout.rescued = None
+    failed, rescued = counts[1]
+    assert len(counts) == K and 0 < rescued <= 16
+    assert (failed > 16) == over and rescued == min(failed, 16)
+    err = int(lt.ResultStatus.ERROR)
+    assert int((rt.statuses[:, 1] == err).sum()) == failed - rescued
+    np.testing.assert_array_equal(rt.statuses.numpy(), np.asarray(rj.statuses))
+    np.testing.assert_array_equal(rt.iterations.numpy(), np.asarray(rj.iterations))
+    for name in ("inputs", "states", "costs"):
+        np.testing.assert_allclose(getattr(rt, name).numpy(), np.asarray(getattr(rj, name)),
+                                   rtol=0, atol=1e-9, err_msg=name)
+
+
+def test_nlmpc_rollout_rescue_keeps_a_lane_whose_rescue_fails_too():
+    """A lane with a NaN state fails both phases: it holds its last command
+    with status ERROR, counts as failed and not as rescued, and the other
+    lanes are untouched by the rescue."""
+    kw = dict(maximum_iteration=12, enable_warm_start=True, inner_qp="riccati",
+              hessian_reg="gauss_newton", rescue_iters=45)
+    x0, _ = vdp_inputs(3, 1)
+    x0[1] = np.nan
+    u0 = np.full((3, 1), 0.25)
+    lt.nlmpc_rollout.rescued = []
+    try:
+        r = lt.nlmpc_rollout(torch_vdp(**kw), lambda x, u, k: x, x0, u0, 1)
+        counts = lt.nlmpc_rollout.rescued
+    finally:
+        lt.nlmpc_rollout.rescued = None
+    assert counts == [(1, 0)]
+    assert r.statuses[:, 0].tolist() == [0, int(lt.ResultStatus.ERROR), 0]
+    assert float(r.inputs[1, 0, 0]) == 0.25 and torch.isinf(r.costs[1, 0])
+    plain = lt.nlmpc_rollout(torch_vdp(**dict(kw, rescue_iters=0)), lambda x, u, k: x,
+                             x0, u0, 1)
+    assert torch.equal(plain.inputs[[0, 2]], r.inputs[[0, 2]])
+    assert torch.equal(plain.iterations, r.iterations)
 
 
 def test_lmpc_rollout_matches_the_float64_oracle_at_matched_states():

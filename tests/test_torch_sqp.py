@@ -134,12 +134,17 @@ def test_chunked_run_equals_one_run():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(inner_qp="admm"), "inner_qp='admm'"),
-    (dict(inner_qp="riccati"), "K4/K5"),
+    (dict(inner_qp="fused"), "shared-memory gate"),
 ])
 def test_engines_not_ported_raise(kw, match):
+    """The inner ``"admm"`` engine, and the oversize float32 ``"fused"``
+    request without a banded plan that the JAX package hands to it."""
     z0, x0, lb, ub = _inputs(2)
+    if kw["inner_qp"] == "admm":
+        with pytest.raises(NotImplementedError, match=match):
+            _torch_solve(z0, x0, lb, ub, NLParameters(**kw))
     with pytest.raises(NotImplementedError, match=match):
-        _torch_solve(z0, x0, lb, ub, NLParameters(**kw))
+        tsqp.inner_engine(NLParameters(**kw), torch.float32, 301, 842, plan_ok=False)
 
 
 def test_fused_request_past_the_gate_raises_and_float64_routes_to_pdip():
@@ -148,6 +153,25 @@ def test_fused_request_past_the_gate_raises_and_float64_routes_to_pdip():
     assert tsqp.inner_engine(par, torch.float64, 26, 57) == "pdip"
     with pytest.raises(NotImplementedError, match="shared-memory gate"):
         tsqp.inner_engine(par, torch.float32, 301, 842)
+    # with a verified banded plan (libmpc_tpu/ops/sqp.py:241-263): an explicit
+    # request, a float64 fused request and an oversize float32 one run the
+    # banded engine; a request the fused kernel can serve keeps it; without a
+    # plan "riccati" degrades to pdip
+    ric = dataclasses.replace(par, inner_qp="riccati")
+    assert tsqp.inner_engine(ric, torch.float32, 26, 57, plan_ok=True) == "riccati"
+    assert tsqp.inner_engine(ric, torch.float64, 26, 57) == "pdip"
+    assert tsqp.inner_engine(par, torch.float32, 301, 842, plan_ok=True) == "riccati"
+    assert tsqp.inner_engine(par, torch.float64, 26, 57, plan_ok=True) == "riccati"
+    assert tsqp.inner_engine(par, torch.float32, 26, 57, plan_ok=True) == "fused"
+    assert tsqp.inner_engine(dataclasses.replace(par, inner_qp="pdip"), torch.float32, 26, 57,
+                             plan_ok=True) == "pdip"
+    from libmpc_tpu_torch.ops.trajectory_kkt import TrajPlan
+    plan = TrajPlan(ph=PH, ch=CH, nx=2, nu=1, mi=PH + 1)
+    assert tsqp.plan_applies(plan, par, DIMS.nz, 2 * PH, PH + 1)
+    assert not tsqp.plan_applies(plan, par, DIMS.nz, 2 * PH, PH)
+    assert not tsqp.plan_applies(None, par, DIMS.nz, 2 * PH, PH + 1)
+    assert not tsqp.plan_applies(plan, dataclasses.replace(par, hessian_reg="eigh"),
+                                 DIMS.nz, 2 * PH, PH + 1)
     with pytest.raises(ValueError):
         tsqp.inner_engine(dataclasses.replace(par, inner_qp="simplex"), torch.float32, 26, 57)
     z0, x0, lb, ub = _inputs(2)
@@ -163,3 +187,44 @@ def test_host_reads_are_counted():
     _host.flag.reads = 0
     t = _torch_solve(z0, x0, lb, ub, NLParameters(maximum_iteration=60))
     assert _host.flag.reads > int(t.iters.max())
+
+
+def test_second_order_correction_gate_is_the_jax_packages():
+    """me = ph nx = 60 lies between the JAX package's exact-solve gate
+    (k <= 52) and the CUDA Cholesky kernel's (k <= 64).  The second-order
+    correction must take the JAX package's 16-step CG there, not the exact
+    solve the kernel would allow: on this stiff, badly scaled NLP the two
+    trial steps differ, and with the exact solve lanes 1 and 2 need 17 and
+    16 SQP iterations where the JAX package needs 16 and 15."""
+    import libmpc_tpu as lj
+    import libmpc_tpu_torch as lt
+
+    assert tsqp._SOC_EXACT_MAX == 52
+    rates = np.geomspace(1.0, 300.0, 12)
+    kj, kt = jnp.asarray(rates), torch.as_tensor(rates)
+
+    def make(pkg, cls, P, f, **kw):
+        c = cls(12, 1, 12, 5, 2, 6, 0, **kw)
+        c.set_discretization_sampling_time(0.1)
+        c.set_state_space_function(f)
+        c.set_objective_function(lambda X, Y, U, e: pkg.sum(X**2) + pkg.sum(U**2))
+        c.set_ineq_con_function(lambda X, Y, U, e: U[:, 0] - 0.5)
+        c.set_state_scale(np.geomspace(0.05, 20.0, 12))
+        c.set_optimizer_parameters(P(maximum_iteration=60, hessian_reg="gershgorin",
+                                     inner_qp="pdip"))
+        return c
+
+    jc = make(jnp, lj.NLMPC, lj.NLParameters,
+              lambda x, u, k: -kj * x - 5 * x**3 + jnp.roll(x, 1) + u[0], dtype=jnp.float64)
+    tc = make(torch, lt.NLMPC, lt.NLParameters,
+              lambda x, u, k: -kt * x - 5 * x**3 + torch.roll(x, 1) + u[0],
+              dtype=torch.float64, device="cpu")
+    assert tc.dims.ph * tc.dims.nx == 60
+    x = np.random.default_rng(5).uniform(-1.5, 1.5, size=(6, 12))[[0, 1, 4]]
+    rj, rt = jc.optimize(x, np.zeros((3, 1))), tc.optimize(x, np.zeros((3, 1)))
+    assert tc._last_iters.tolist() == [14, 16, 15]
+    np.testing.assert_array_equal(tc._last_iters.numpy(), np.asarray(jc._last_iters))
+    np.testing.assert_array_equal(rt.status.numpy(), np.asarray(rj.status))
+    np.testing.assert_allclose(tc._opt_vector.numpy(), np.asarray(jc._opt_vector),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rt.cmd.numpy(), np.asarray(rj.cmd), rtol=0, atol=1e-9)

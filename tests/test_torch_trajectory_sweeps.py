@@ -1,0 +1,180 @@
+"""The twins of the trajectory factor and sweep kernels
+(``libmpc_tpu_torch/ops/trajectory_sweeps.py``, the CPU path of
+``batched_factor`` / ``batched_sweep_solve``) against the JAX package's
+sequential recursions, its Pallas kernels in interpret mode and a dense
+solve, on quasi-definite banded data made with numpy from a seed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libmpc_tpu.ops import trajectory_kkt as jtk
+from libmpc_tpu.ops import trajectory_sweeps as jts
+from libmpc_tpu_torch.ops import trajectory_kkt as ttk
+from libmpc_tpu_torch.ops import trajectory_sweeps as tts
+
+SHAPES = [(6, 4, 3, 2), (10, 5, 2, 1), (4, 1, 2, 2), (1, 1, 2, 1)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def quasidef_banded(rng, plan):
+    """A quasi-definite bordered block-tridiagonal matrix in the permuted
+    stage layout (tests/test_trajectory_kkt.py:43-81): primal Gram over
+    adjacent-stage rows and the border, negative-definite dual diagonal,
+    banded cross coupling."""
+    ph, bs, bs_p, w = plan.ph, plan.bs, plan.bs_p, plan.w
+    n = ph * bs + w
+    prim = np.concatenate(
+        [np.arange(k * bs, k * bs + bs_p) for k in range(ph)] + [np.arange(ph * bs, n)])
+    dual = np.concatenate([np.arange(k * bs + bs_p, (k + 1) * bs) for k in range(ph)])
+    M = np.zeros((n, n))
+    for k in range(ph):
+        for _ in range(6):
+            v = np.zeros(n)
+            sl = np.arange(k * bs, k * bs + bs_p)
+            if k + 1 < ph:
+                sl = np.concatenate([sl, np.arange((k + 1) * bs, (k + 1) * bs + bs_p)])
+            sl = np.concatenate([sl, np.arange(ph * bs, n)])
+            v[sl] = rng.normal(size=sl.size)
+            M += np.outer(v, v)
+    M[prim[:, None], prim[None, :]] += 0.1 * np.eye(prim.size)
+    M[dual[:, None], dual[None, :]] = -0.05 * np.eye(dual.size)
+    for k in range(ph):
+        rows = np.arange(k * bs + bs_p, (k + 1) * bs)
+        cols = list(np.arange(k * bs, k * bs + bs_p)) + list(np.arange(ph * bs, n))
+        if k:
+            cols += list(np.arange((k - 1) * bs, (k - 1) * bs + bs_p))
+        cols = np.asarray(cols)
+        blk = rng.normal(size=(rows.size, cols.size))
+        M[rows[:, None], cols[None, :]] = blk
+        M[cols[:, None], rows[None, :]] = blk.T
+    return M
+
+
+def stage_blocks(Ms, plan):
+    """(D, L, C, G) of a list of assembled matrices, batch axis leading."""
+    ph, bs = plan.ph, plan.bs
+    D = np.stack([[M[k*bs:(k+1)*bs, k*bs:(k+1)*bs] for k in range(ph)] for M in Ms])
+    L = (np.stack([[M[k*bs:(k+1)*bs, (k-1)*bs:k*bs] for k in range(1, ph)] for M in Ms])
+         if ph > 1 else np.zeros((len(Ms), 0, bs, bs)))
+    C = np.stack([[M[k*bs:(k+1)*bs, ph*bs:] for k in range(ph)] for M in Ms])
+    G = np.stack([M[ph*bs:, ph*bs:] for M in Ms])
+    return D, L, C, G
+
+
+def _case(ph, ch, nx, nu, B, seed):
+    plan = jtk.TrajPlan(ph=ph, ch=ch, nx=nx, nu=nu, mi=3)
+    rng = np.random.default_rng(seed)
+    Ms = [quasidef_banded(rng, plan) for _ in range(B)]
+    return plan, rng, Ms, stage_blocks(Ms, plan)
+
+
+@pytest.mark.parametrize("ph,ch,nx,nu", SHAPES)
+def test_twins_match_the_sequential_recursions_float64(ph, ch, nx, nu):
+    """``traj_factor_plain`` + the border inverse against ``_traj_factor_seq``
+    and ``traj_solve_plain`` against ``_traj_solve_seq`` (vmapped), 1e-12 of
+    scale; ph = 1 (no sub-diagonal block) and ch = 1 included."""
+    plan, rng, Ms, blocks = _case(ph, ch, nx, nu, 3, ph * 100 + ch)
+    r = rng.normal(size=(3, ph * plan.bs + plan.w))
+    rs, rg = r[:, :ph * plan.bs].reshape(3, ph, plan.bs), r[:, ph * plan.bs:]
+    jf = jax.vmap(lambda d, l, c, g: jtk._traj_factor_seq(plan, d, l, c, g))(
+        *(jnp.asarray(a) for a in blocks))
+    jx = jax.vmap(lambda s, l, x, gi, a, b: jtk._traj_solve_seq(
+        plan, jtk.TrajFactors(s, l, x, gi), a, b))(*jf, jnp.asarray(rs), jnp.asarray(rg))
+    tplan = ttk.TrajPlan(ph=ph, ch=ch, nx=nx, nu=nu, mi=3)
+    tf = ttk.traj_factor(tplan, *(torch.as_tensor(a) for a in blocks))
+    tx = ttk.traj_solve(tplan, tf, torch.as_tensor(rs), torch.as_tensor(rg))
+    assert tf.L.shape == (3, ph - 1, plan.bs, plan.bs)
+    for got, want in list(zip(tf, jf)) + list(zip(tx, jx)):
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        if want.size:
+            assert np.abs(got.numpy() - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("ph,ch,nx,nu", SHAPES)
+def test_twins_solve_the_assembled_matrix(ph, ch, nx, nu):
+    """Factor + solve against ``numpy.linalg.solve`` of the dense
+    quasi-definite matrix: 1e-9 relative on every lane."""
+    plan, rng, Ms, blocks = _case(ph, ch, nx, nu, 4, ph * 100 + ch + 1)
+    r = rng.normal(size=(4, ph * plan.bs + plan.w))
+    Sinv, X, Ghat = tts.batched_factor(*(torch.as_tensor(a) for a in blocks), plan.bs_p)
+    Gi = torch.linalg.inv(0.5 * (Ghat + Ghat.transpose(1, 2)))
+    xs, xg = tts.batched_sweep_solve(
+        Sinv, torch.as_tensor(blocks[1]), X, Gi,
+        torch.as_tensor(r[:, :ph * plan.bs].reshape(4, ph, plan.bs)),
+        torch.as_tensor(r[:, ph * plan.bs:]))
+    for b in range(4):
+        ref = np.linalg.solve(Ms[b], r[b])
+        x = np.concatenate([xs[b].numpy().ravel(), xg[b].numpy()])
+        assert np.abs(x - ref).max() / np.abs(ref).max() < 1e-9
+
+
+@pytest.mark.parametrize("ph,ch,nx,nu", [(6, 4, 3, 2), (5, 3, 2, 1)])
+def test_factor_twin_matches_pallas_interpret_float32(ph, ch, nx, nu):
+    """Against the Pallas factor kernels in interpret mode, float32, 1e-3
+    relative on Sinv, X and the symmetrized border inverse (the tolerance of
+    tests/test_trajectory_kkt.py:167-169)."""
+    plan, rng, Ms, blocks = _case(ph, ch, nx, nu, 3, 5)
+    b32 = [a.astype(np.float32) for a in blocks]
+    Sk, Xk, Gk = jts.batched_factor(*(jnp.asarray(a) for a in b32), plan.bs_p,
+                                    interpret=True)
+    St, Xt, Gt = tts.batched_factor(*(torch.as_tensor(a) for a in b32), plan.bs_p)
+    assert St.dtype == torch.float32
+    inv = lambda G: np.linalg.inv(0.5 * (G + np.swapaxes(G, -1, -2)).astype(np.float64))
+    for got, want in ((St.numpy(), np.asarray(Sk)), (Xt.numpy(), np.asarray(Xk)),
+                      (inv(Gt.numpy()), inv(np.asarray(Gk)))):
+        assert np.abs(got - want).max() / (np.abs(want).max() + 1e-9) < 1e-3
+
+
+@pytest.mark.parametrize("ph,ch,nx,nu", [(6, 4, 3, 2), (20, 10, 12, 6)])
+def test_sweep_twin_matches_pallas_interpret_float32(ph, ch, nx, nu):
+    """Against the Pallas sweep kernels in interpret mode, float32, 1e-5 of
+    scale (tests/test_trajectory_kkt.py:110-135's data), at the oscillators'
+    own stage shape too."""
+    plan = jtk.TrajPlan(ph=ph, ch=ch, nx=nx, nu=nu, mi=3)
+    bs, w = plan.bs, plan.w
+    rng = np.random.default_rng(1)
+    B = 3
+    r32 = lambda *s: rng.normal(size=s).astype(np.float32)
+    Sinv = r32(B, ph, bs, bs) * 0.1 + np.eye(bs, dtype=np.float32)
+    L = 0.3 * r32(B, ph - 1, bs, bs)
+    X = 0.3 * r32(B, ph, bs, w)
+    Gi = r32(B, w, w) * 0.1 + np.eye(w, dtype=np.float32)
+    args = (Sinv, L, X, Gi, r32(B, ph, bs), r32(B, w))
+    ker = jts.batched_sweep_solve(*(jnp.asarray(a) for a in args), interpret=True)
+    twin = tts.batched_sweep_solve(*(torch.as_tensor(a) for a in args))
+    scale = float(np.abs(np.asarray(ker[0])).max()) + 1.0
+    for got, want in zip(twin, ker):
+        assert got.dtype == torch.float32
+        assert np.abs(got.numpy() - np.asarray(want)).max() / scale < 1e-5
+
+
+def test_gates_and_devices():
+    """The kernels' gates are shared-memory gates of the card; a tensor that
+    is neither on the CPU nor on a CUDA device never reaches a twin."""
+    assert tts.factor_supported(20, 30, 18, 8) and tts.sweeps_supported(20, 30, 8)
+    assert tts.factor_supported(20, 30, 18, 8, torch.float64)
+    assert tts.factor_supported(1, 5, 3, 3) and tts.sweeps_supported(1, 5, 3)
+    assert tts.factor_smem_bytes(30, 18, 8) == 4 * (
+        4 * 30 * 31 + 3 * 30 * 8 + 2 * 18 * 19 + 12 * 19 + 2 * 12 * 13 + 18 * 13 + 64)
+    assert not tts.factor_supported(20, 300, 200, 8)
+    assert not tts.factor_supported(20, 30, 30, 8) and not tts.factor_supported(0, 30, 18, 8)
+    assert not tts.sweeps_supported(20, 400, 8)
+    z = lambda *s: torch.empty(s, device="meta")
+    lf, ls = tts.batched_factor.launches, tts.batched_sweep_solve.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        tts.batched_factor(z(2, 3, 5, 5), z(2, 2, 5, 5), z(2, 3, 5, 3), z(2, 3, 3), 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tts.batched_sweep_solve(z(2, 3, 5, 5), z(2, 2, 5, 5), z(2, 3, 5, 3), z(2, 3, 3),
+                                z(2, 3, 5), z(2, 3))
+    assert (tts.batched_factor.launches, tts.batched_sweep_solve.launches) == (lf, ls)
