@@ -52,9 +52,13 @@ Phases, one line each (any failure raises and the script exits non-zero):
     bound, steady-state and closed-loop solves/s of the three paths
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-times), ``--profile`` adds a ``torch.profiler`` breakdown of the two NLMPC
-loops (and the oscillator rollout's idle share from one traced window) and ``--sweep-k3`` times K3 for several warps per block; with no
-arguments every phase runs.  The second-to-last line is one JSON object
+times; ``--phases k4`` is K4's one-minute check: its twin comparisons and a
+``K4-speed`` line with its time, bound, registers and spills),
+``--profile`` adds a ``torch.profiler`` breakdown of the two NLMPC loops
+(and the oscillator rollout's idle share from one traced window),
+``--sweep-k3`` times K3 for several warps per block and ``--k4-clocks``
+counts the cycles of each barrier phase of K4; with no arguments every
+phase runs.  The second-to-last line is one JSON object
 describing each kernel; the last line is ``{"ok": true, "device": {...}}``
 (both only when every phase ran).
 
@@ -1123,6 +1127,86 @@ def phase_sweep_k3(torch, qpf):
               ms_setup_and_first_block=f"{t25:.4f}")
 
 
+def phase_k4_clocks(torch):
+    """``--k4-clocks``: where one K4 block's time goes.  A copy of
+    ``csrc/traj_factor.cu`` in which thread 0 of every block reads
+    ``clock64()`` after each barrier and adds the cycles since the last one
+    to that barrier's counter is built beside the kernel library and run at
+    the oscillators' shape, float32, 128 threads, with the full batch and
+    with one instance per SM.  Each line is one barrier (its line in
+    ``traj_factor.cu``; ``chol`` is a whole call of the Cholesky routine):
+    the cycles of the phase that ends there, summed over the stages, mean
+    over blocks, and its share.  Diagnostic only: the main path runs the
+    kernel without counters."""
+    import ctypes
+    import re
+    b = _build_mod()
+    src = (b.CSRC / "traj_factor.cu").read_text()
+    head = ("__device__ unsigned long long k4_clocks[4096 * 64];\n"
+            "#define K4_CLOCK(id) do { if (threadIdx.x == 0) { unsigned long long t_ = "
+            "clock64(); k4_clocks[blockIdx.x * 64 + (id)] += t_ - t_last; t_last = t_; } "
+            "} while (0)\n")
+    k0, k1 = src.index("traj_factor_kernel(const T*"), src.index("template <typename T>\nint launch")
+    body, sites = src[k0:k1], {}
+    first_line = src[:k0].count("\n") + 1
+
+    def mark(m):
+        sid = len(sites) + 1
+        line = first_line + body[:m.start()].count("\n")
+        sites[sid] = f"line {line}" + (" (chol)" if "block_chol" in m.group(0) else "")
+        return f"{m.group(0)} K4_CLOCK({sid});"
+
+    body = re.sub(r"__syncthreads\(\);|libmpc::block_chol_lower_inverse\([^;]*\);", mark, body)
+    body = body.replace("T* sm = reinterpret_cast<T*>(smem_raw);",
+                        "T* sm = reinterpret_cast<T*>(smem_raw);\n  unsigned long long t_last = clock64();")
+    out = b.BUILD_DIR / "k4_clocks"
+    out.mkdir(parents=True, exist_ok=True)
+    for h in b.HEADERS:
+        (out / h).write_text((b.CSRC / h).read_text())
+    (out / "traj_factor.cu").write_text(
+        src[:k0].replace("namespace {\n", head + "namespace {\n", 1) + body + src[k1:]
+        + '\nextern "C" int k4_clocks_read(unsigned long long* out) {\n'
+          "  cudaError_t e = cudaMemcpyFromSymbol(out, k4_clocks, sizeof(k4_clocks));\n"
+          "  static unsigned long long zero[4096 * 64];\n"
+          "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k4_clocks, zero, sizeof(zero));\n"
+          "  return (int)e;\n}\n")
+    lib_path = out / "libk4clocks.so"
+    subprocess.run([b.find_nvcc(), *b.NVCC_FLAGS, "-shared", "-o", str(lib_path),
+                    str(out / "traj_factor.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.libmpc_traj_factor_f32
+    fn.argtypes = b._SIGNATURES["libmpc_traj_factor_f32"]
+    lib.k4_clocks_read.argtypes = [ctypes.c_void_p]
+    data = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+            for a in traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    buf = np.zeros(4096 * 64, dtype=np.uint64)
+    for B in (B_OSC, n_sm):
+        D, L, C, G = (a[:B].contiguous() for a in data)
+        S, X, Gh = torch.empty_like(D), torch.empty_like(C), torch.empty_like(G)
+
+        def call():
+            code = fn(D.data_ptr(), L.data_ptr(), C.data_ptr(), G.data_ptr(), S.data_ptr(),
+                      X.data_ptr(), Gh.data_ptr(), B, PH_O, BS_O, BSP_O, W_O, 128,
+                      torch.cuda.current_stream().cuda_stream)
+            require(code == 0, f"instrumented K4 launched ({code})")
+
+        call()
+        torch.cuda.synchronize()
+        require(lib.k4_clocks_read(buf.ctypes.data) == 0, "K4 clocks read")
+        reps = 10
+        ms = cuda_ms(torch, call, reps=reps, warmup=0)
+        require(lib.k4_clocks_read(buf.ctypes.data) == 0, "K4 clocks read")
+        cyc = buf.reshape(4096, 64)[:B].astype(np.float64) / reps
+        total = cyc.sum(axis=1).mean()
+        phase("k4-clocks", B=B, ms=f"{ms:.4f}", cycles_per_block=f"{total:.0f}",
+              ghz=f"{total / ms / 1e6:.3f}")
+        for sid, where in sites.items():
+            c = cyc[:, sid].mean()
+            phase("k4-clocks-site", B=B, site=sid, at=repr(where), cycles=f"{c:.0f}",
+                  share=f"{c / total:.3f}")
+
+
 # -- the networked oscillators of examples/networked_oscillators_ex.cpp --------
 def osc_dynamics(x, u, k):
     """Six diffusively coupled Van der Pol oscillators (bench.py:565-578):
@@ -1234,10 +1318,19 @@ def _sym(M):
     return 0.5 * (M + M.transpose(-1, -2))
 
 
-# (B, ph, bs_p, nx, w): the oscillators' shape, a ragged batch of it, and a
-# single-stage problem (no sub-diagonal block)
+# (B, ph, bs_p, nx, w): the oscillators' shape, a ragged batch of it, a
+# single-stage problem (no sub-diagonal block), and the edges of K4's tiles:
+# a stage block just past 32 (bs = 33), one primal and one dual slot (bs = 2;
+# with more dual slots these blocks part at 1e-4 in float32 whoever evaluates
+# them), a border wider than
+# the block, the Van der Pol float64 shape (bench.py:444-480 through the banded
+# engine), and the largest float64 shape K4's gate admits at the oscillators'
+# proportions (bs_p = bs - bs // 3, w = 8; bs = 73 is refused)
+K4_LARGEST_F64 = (64, 4, 48, 24, 8)
 TRAJ_CASES = ((B_OSC, PH_O, BSP_O, NX_O, W_O), (1003, PH_O, BSP_O, NX_O, W_O),
-              (37, 1, 3, 2, 3))
+              (37, 1, 3, 2, 3), (256, 20, 20, 13, 9), (256, 8, 1, 1, 3),
+              (256, 6, 5, 3, 12), (1024, 10, 3, 2, 3), K4_LARGEST_F64)
+K4_MS_BEFORE = 2.327  # K4 float32 at the oscillators' shape before its redesign (PERF.md)
 K4_SLACK = 3.0  # float32 K4 against float64, as a multiple of its twin's distance
 
 
@@ -1327,7 +1420,7 @@ def phase_k4(torch, ts, lt, tk):
                   max_abs_err=f"{absmax:.3e}",
                   smem_bytes=ts.factor_smem_bytes(bs_p + nx, bs_p, w, dtype))
             require(max(rel) <= tol, f"K4 {name} B={B} ph={ph} within {tol} of its twin")
-            if B == B_OSC and dtype == torch.float32:
+            if (B, ph, bs_p, nx, w) == TRAJ_CASES[0] and dtype == torch.float32:
                 res["float32"] = absmax
 
     hard = [("six-term", [torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in
@@ -1353,6 +1446,64 @@ def phase_k4(torch, ts, lt, tk):
     return res
 
 
+def kernel_resources(log, name):
+    """Registers and spill bytes of each float/double instance of kernel
+    ``name``, from the ``-Xptxas -v`` lines of the build."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ("float32" if f"{name}If" in ln else "float64" if f"{name}Id" in ln
+                   else None)
+        elif cur and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            out.setdefault(cur, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif cur and "Used" in ln and "registers" in ln:
+            out.setdefault(cur, {})["registers"] = int(re.search(r"Used (\d+) registers", ln)[1])
+    return out
+
+
+def phase_k4_speed(torch, ts, card):
+    """K4's time at the oscillators' shape (CUDA events), float32 and
+    float64, beside its bound, its time before the redesign and its
+    registers and spills; float32 also at 64, 128 and 256 threads a block
+    and with one instance per SM."""
+    blocks = traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)
+    data = {dt: [torch.as_tensor(a, dtype=dt, device="cuda") for a in blocks]
+            for dt in (torch.float32, torch.float64)}
+    times = {dt: cuda_ms(torch, lambda: ts.batched_factor(*t, BSP_O), reps=20)
+             for dt, t in data.items()}
+    # float32 at other block sizes, and with one instance per SM (the chain of
+    # one instance alone: latency, where the full batch adds contention)
+    threads, by_threads = ts.FACTOR_THREADS, {}
+    try:
+        for nt in (64, 128, 256):
+            ts.FACTOR_THREADS = nt
+            by_threads[nt] = cuda_ms(
+                torch, lambda: ts.batched_factor(*data[torch.float32], BSP_O), reps=20)
+    finally:
+        ts.FACTOR_THREADS = threads
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    one = [a[:n_sm].contiguous() for a in data[torch.float32]]
+    t_one = cuda_ms(torch, lambda: ts.batched_factor(*one, BSP_O), reps=20)
+    bound, by = traj_factor_bound_ms(B_OSC, PH_O, BS_O, BSP_O, W_O)
+    res = kernel_resources(_build_mod().build_info.get("log", ""), "traj_factor_kernel")
+    fmt = lambda r: (f"{r.get('registers')}/{r.get('spill_stores')}/{r.get('spill_loads')}"
+                     if r else "not measured")
+    phase("K4-speed", card=repr(card),
+          shape=f"B={B_OSC},ph={PH_O},bs={BS_O},bs_p={BSP_O},w={W_O}",
+          ms_float32=f"{times[torch.float32]:.4f}", ms_float64=f"{times[torch.float64]:.4f}",
+          ms_before=K4_MS_BEFORE, bound_ms=f"{bound:.5f}", bound_by=by,
+          threads=threads,
+          ms_float32_by_threads="/".join(f"{k}:{v:.4f}" for k, v in by_threads.items()),
+          **{f"ms_float32_B{n_sm}_one_per_sm": f"{t_one:.4f}"},
+          regs_spill_st_ld_float32=fmt(res.get("float32")),
+          regs_spill_st_ld_float64=fmt(res.get("float64")),
+          smem_bytes_float32=ts.factor_smem_bytes(BS_O, BSP_O, W_O, torch.float32),
+          smem_bytes_float64=ts.factor_smem_bytes(BS_O, BSP_O, W_O, torch.float64))
+    return times
+
+
 def phase_k5(torch, ts, batched_linalg):
     """K5 against its twin on the card, on the factors the twin of K4 makes of
     the same data: float64 within 1e-10 of scale on xs and g; float32 within
@@ -1362,6 +1513,9 @@ def phase_k5(torch, ts, batched_linalg):
     res = {}
     for B, ph, bs_p, nx, w in TRAJ_CASES:
         bs = bs_p + nx
+        if not ts.sweeps_supported(ph, bs, w, torch.float64):
+            phase("K5", B=B, ph=ph, bs=bs, w=w, skipped="past K5's shared-memory gate")
+            continue
         data = traj_blocks(B, ph, bs_p, nx, w, seed=B)
         rng = np.random.default_rng(B + 1)
         r_h = rng.normal(size=(B, ph * bs + w))
@@ -1386,7 +1540,7 @@ def phase_k5(torch, ts, batched_linalg):
                   scale=f"{scale:.3e}", max_abs_err=f"{absmax:.3e}",
                   smem_bytes=ts.sweep_smem_bytes(ph, bs, w, dtype))
             require(max(err) <= tol, f"K5 {name} B={B} ph={ph} within {tol} of its twin")
-            if B == B_OSC and dtype == torch.float32:
+            if (B, ph, bs_p, nx, w) == TRAJ_CASES[0] and dtype == torch.float32:
                 res["float32"] = absmax
         # the three kernels together against a dense solve
         Sk, Xk, Gk = ts.batched_factor(*t64, bs_p)
@@ -1664,6 +1818,8 @@ def main(argv=None) -> int:
                     help="add a torch.profiler breakdown of the NLMPC loop")
     ap.add_argument("--sweep-k3", action="store_true",
                     help="time K3 for several warps per block")
+    ap.add_argument("--k4-clocks", action="store_true",
+                    help="cycles of each barrier phase of K4 (an instrumented copy)")
     opts = ap.parse_args(argv)
     want = set(opts.phases.split(","))
     if not want <= set(PHASES):
@@ -1697,6 +1853,7 @@ def main(argv=None) -> int:
         k3_err = phase_k3(torch, qpf)
     if "k4" in want:
         k4_err = phase_k4(torch, ts, lt, tk)
+        phase_k4_speed(torch, ts, card)
     if "k5" in want:
         k5_err = phase_k5(torch, ts, batched_linalg)
     if "lmpc" in want:
@@ -1716,6 +1873,8 @@ def main(argv=None) -> int:
         phase_profile_osc_rollout(torch, lt, tk, host, mods)
     if opts.sweep_k3:
         phase_sweep_k3(torch, qpf)
+    if opts.k4_clocks:
+        phase_k4_clocks(torch)
     if "times" in want:
         times = phase_times(torch, lt, admm_fused, batched_linalg, card)
         times.update(phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, wall_nl))

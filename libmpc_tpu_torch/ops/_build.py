@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("admm_fused.cu", "chol_inverse.cu", "qp_inner.cu", "traj_factor.cu",
            "traj_sweep.cu")
-HEADERS = ("chol_warp.cuh",)
+HEADERS = ("chol_warp.cuh", "chol_block.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +40,8 @@ _lib: Optional[ctypes.CDLL] = None
 
 # facts about the last build, for reports: wall seconds (0.0 when the cached
 # library was loaded), the nvcc command and what nvcc printed (-Xptxas -v
-# lists each kernel's registers, shared memory and spills)
+# lists each kernel's registers, shared memory and spills; kept beside the
+# library, so a cached load reports it too)
 build_info: dict = {}
 
 _P = ctypes.c_void_p
@@ -95,8 +96,10 @@ def build() -> Path:
     """Compile the kernel library if no build of the current sources exists;
     returns its path."""
     target = BUILD_DIR / f"libmpc_kernels_{_digest()}.so"
+    log_file = target.with_suffix(".log")
     if target.is_file():
-        build_info.update(seconds=0.0, cached=True, path=str(target))
+        build_info.update(seconds=0.0, cached=True, path=str(target),
+                          log=log_file.read_text() if log_file.is_file() else "")
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
@@ -122,6 +125,7 @@ def build() -> Path:
             log.append(out)
             if rc != 0:
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+        log_file.write_text("".join(log))
         os.replace(tmp, target)
     finally:
         for obj in objects:

@@ -40,12 +40,22 @@ tensors are read batch-first as they are and a ragged batch is a bounds
 check.
 
 * The factorization does about ``4 bs^3`` multiply-adds per stage on a
-  working set of some 25 KB, and its bytes and operations take about the
-  same time at the card's peaks.  One block of 128 threads owns one
-  instance: the stage's matrices stay in shared memory (odd leading
-  dimension, so products read rows and columns without bank conflicts),
-  every thread works on the matrix products, and warp 0 runs the two
-  Cholesky inverses of ``csrc/chol_warp.cuh``.  The first pass writes
+  working set of some 25 KB.  One block of 128 threads owns one instance
+  (eight blocks an SM at the oscillators' shape, the whole batch in one
+  wave), so one instance's chain of ``ph`` stages, each some forty barrier
+  phases long, sets the time, and what the eight blocks of an SM issue
+  between them adds to it.  Every product goes through one register-tiled
+  routine: a thread owns a small tile of the output (up to 3 x 4) and per
+  term loads a few values of the left operand and one vector of the right,
+  from shared memory laid out with leading dimensions that keep both reads
+  free of bank conflicts; ``[S_k | Z_k]`` is updated in one pass with
+  ``[L_{k-1}' | Z_{k-1}]`` as the right operand.  The two SPD inverses of
+  the quasi-definite pivot (``csrc/chol_block.cuh``) are a right-looking
+  Cholesky factorization with the triangular inverse one pivot behind it,
+  one barrier a pivot, the pivot's reciprocals computed a phase ahead, and
+  ``S^-1 = L^-T L^-1`` through the tiles.  The next stage's ``D``, ``C``
+  and ``L'`` (and, on the way back, ``L``, ``S^-1`` and ``U``) arrive by
+  ``cp.async`` while the current stage computes.  The first pass writes
   ``S_k^-1`` and ``U_k = S_k^-1 Z_k`` out; the backward pass of the same
   block reads them back.
 * The solve does two operations per word it reads, so bytes bound it.  One
@@ -54,12 +64,11 @@ check.
   forward and once backward, and a lane computes one row of each product.
 
 Measured on an NVIDIA H100 80GB HBM3 (700 W) at B=1024, ph=20, bs=30, w=8,
-float32 (``chip_smoke.py``): the factorization 2.33 ms against a bound of
-0.077 ms, the solve 0.55 ms against 0.050 ms.  The products read two
-shared-memory words per multiply-add, so shared-memory load throughput, not
-device memory, holds both; register tiling of the 30 x 30 products and
-keeping one instance's factors resident for both directions of the solve are
-the next steps (``PERF.md``).
+float32 (``chip_smoke.py``): the factorization 1.04 ms (2.33 before this
+design) against a bound of 0.077 ms, and 0.58 ms with one instance per SM
+alone, so one instance's chain of barrier phases, of which the two SPD
+inverses are about half (``--k4-clocks``), is most of its time; the solve
+0.55 ms against 0.050 ms (``PERF.md``).
 
 :func:`factor_supported` and :func:`sweeps_supported` are the kernels' own
 gates: the shared memory of one instance must fit the 227 KB a block can
@@ -75,7 +84,7 @@ import torch
 from . import _build, batched_linalg
 
 SMEM_LIMIT_BYTES = 232448  # dynamic shared memory one Hopper block can use
-FACTOR_THREADS = 128  # threads of the block that owns one instance (K4)
+FACTOR_THREADS = 128  # threads of the block that owns one instance (K4; 64, 256 slower)
 SWEEP_WARPS = 4  # warps (= instances) per block (K5)
 
 
@@ -83,19 +92,32 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.finfo(dtype).bits // 8
 
 
+def _ld(cols: int, itemsize: int) -> int:
+    """Leading dimension of a shared-memory matrix of ``cols`` columns in the
+    factor kernel: a multiple of the vector width, offset (float 4 mod 8,
+    double 2 mod 4) so that rows a few apart fall in distinct banks."""
+    return (cols + 7) // 8 * 8 + 4 if itemsize == 4 else (cols + 3) // 4 * 4 + 2
+
+
 def factor_smem_bytes(bs: int, bs_p: int, w: int,
                       dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one instance in the factor kernel: four ``bs`` x
-    ``bs`` matrices (the previous pivot inverse, the pivot block, ``L`` and
-    their product) and three ``bs`` x ``w`` ones (``Z`` of this stage and the
-    last, ``U``), the workspaces of the quasi-definite inverse (two ``p`` x
-    ``p``, one ``n`` x ``p``, two ``n`` x ``n``, one ``p`` x ``n``) and the
-    ``w`` x ``w`` border sum; matrices have odd leading dimensions."""
+    """Shared memory of one instance in the factor kernel
+    (``csrc/traj_factor.cu::factor_layout``): the pivot inverse and the
+    product ``L S^-1`` (``bs`` x ``bs`` each, or the workspaces of the
+    quasi-definite inverse and of the backward sweep where those are
+    larger), two ``[S_k | Z_k]`` buffers and one ``[L' | Z]`` buffer
+    (``bs`` x (``bs`` rounded up to 4, + ``w``)), the ``w`` x ``w`` border
+    sum, the pivot reciprocals of the Cholesky factors and a tail of four
+    rows that padded tiles may read."""
+    it = _itemsize(dtype)
     p, n = bs_p, bs - bs_p
-    ld, ldp, ldn = bs | 1, p | 1, n | 1
-    words = (4 * bs * ld + 3 * bs * w + 2 * p * ldp + n * ldp + 2 * n * ldn
-             + p * ldn + w * w)
-    return words * _itemsize(dtype)
+    bsP = (bs + 3) // 4 * 4
+    ldS, ldZ = _ld(bs, it), _ld(bsP + w, it)
+    ldp, ldn, ldw = _ld(p, it), _ld(n, it), _ld(w, it)
+    sp = max(bs * ldS, 2 * p * ldp, 3 * n * ldn)
+    ls = max(bs * ldS, p * ldp + n * ldp + n * ldn, 2 * bs * ldw)
+    words = sp + ls + 3 * bs * ldZ + (w * w + 2 * max(p, n) + 3) // 4 * 4 + 4 * ldZ
+    return words * it
 
 
 def factor_supported(ph: int, bs: int, bs_p: int, w: int,

@@ -218,14 +218,18 @@ def _traj_data(B, ph, bs_p, nx, w, dtype, device, seed=0, terms=None):
 
 
 _TRAJ_SHAPES = [(37, 6, 5, 3, 4), (64, 20, 18, 12, 8), (5, 1, 3, 2, 3)]
+# the edges of K4's tiles: bs = 33, one primal slot, a border wider than the
+# block, the Van der Pol shape, the largest float64 block K4's gate admits
+_K4_EDGE_SHAPES = [(37, 20, 20, 13, 9), (37, 8, 1, 1, 3), (37, 6, 5, 3, 12),
+                   (64, 10, 3, 2, 3), chip_smoke.K4_LARGEST_F64]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
-@pytest.mark.parametrize("B,ph,bs_p,nx,w", _TRAJ_SHAPES)
+@pytest.mark.parametrize("B,ph,bs_p,nx,w", _TRAJ_SHAPES + _K4_EDGE_SHAPES)
 def test_traj_factor_kernel_matches_twin(cuda, dtype, tol, B, ph, bs_p, nx, w):
     """K4: Sinv, X and the symmetrized border Schur complement within ``tol``
-    of the twin's scale; ragged batch, the oscillators' shape and a single
-    stage."""
+    of the twin's scale; ragged batch, the oscillators' shape, a single
+    stage and the edges of the kernel's tiles."""
     data = _traj_data(B, ph, bs_p, nx, w, dtype, cuda)
     launches = tsw.batched_factor.launches
     got = tsw.batched_factor(*data, bs_p)

@@ -4,12 +4,18 @@
 sequential recursions, its Pallas kernels in interpret mode and a dense
 solve, on quasi-definite banded data made with numpy from a seed."""
 
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its stage-block generator; imports no JAX)
 from libmpc_tpu.ops import trajectory_kkt as jtk
 from libmpc_tpu.ops import trajectory_sweeps as jts
 from libmpc_tpu_torch.ops import trajectory_kkt as ttk
@@ -159,14 +165,62 @@ def test_sweep_twin_matches_pallas_interpret_float32(ph, ch, nx, nu):
         assert np.abs(got.numpy() - np.asarray(want)).max() / scale < 1e-5
 
 
+# (ph, bs_p, nx, w) at the edges of the factor kernel's tiles: a stage block
+# just past 32 (bs = 33), one primal slot, a border wider than the block, the
+# Van der Pol shape, and the largest float64 shape the kernel's gate admits at
+# the oscillators' proportions (chip_smoke.K4_LARGEST_F64)
+EDGE_SHAPES = [(3, 20, 13, 9), (4, 1, 1, 3), (3, 1, 4, 3), (3, 5, 3, 12), (10, 3, 2, 3),
+               chip_smoke.K4_LARGEST_F64[1:]]
+
+
+@pytest.mark.parametrize("ph,bs_p,nx,w", EDGE_SHAPES)
+def test_factor_twin_matches_the_sequential_recursion_at_the_kernel_edges(ph, bs_p, nx, w):
+    """``traj_factor_plain`` (the reference the CUDA kernel is held against
+    at these shapes on the card) against the JAX package's
+    ``_traj_factor_seq``, float64, 1e-12 of scale: Sinv, X and the border
+    Schur complement's inverse."""
+    bs = bs_p + nx
+    plan = SimpleNamespace(ph=ph, bs=bs, bs_p=bs_p, w=w)
+    blocks = chip_smoke.traj_blocks(2, ph, bs_p, nx, w, seed=ph * 100 + bs)
+    jf = jax.vmap(lambda d, l, c, g: jtk._traj_factor_seq(plan, d, l, c, g))(
+        *(jnp.asarray(a) for a in blocks))
+    tf = ttk.traj_factor(plan, *(torch.as_tensor(a) for a in blocks))
+    for got, want in ((tf.Sinv, jf.Sinv), (tf.X, jf.X), (tf.Ghat_inv, jf.Ghat_inv)):
+        want = np.asarray(want)
+        assert got.shape == want.shape and got.dtype == torch.float64
+        assert np.abs(got.numpy() - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
+
+
+_F32, _F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("ph,bs,bs_p,w,dtype,admitted", [
+    (20, 30, 18, 8, _F32, True),    # the oscillators, float32
+    (20, 30, 18, 8, _F64, True),    # and float64 (the golden, riccati against pdip)
+    (10, 5, 3, 3, _F64, True),      # Van der Pol through the banded engine, float64
+    (4, 72, 48, 8, _F64, True),     # the largest float64 block at those proportions
+    (4, 73, 49, 8, _F64, False),    # the first refused
+])
+def test_factor_gate(ph, bs, bs_p, w, dtype, admitted):
+    """The factor kernel's gate is its shared-memory layout
+    (``csrc/traj_factor.cu::factor_layout``) against one block's limit."""
+    assert tts.factor_supported(ph, bs, bs_p, w, dtype) is admitted
+    assert (tts.factor_smem_bytes(bs, bs_p, w, dtype) <= tts.SMEM_LIMIT_BYTES) is admitted
+
+
 def test_gates_and_devices():
     """The kernels' gates are shared-memory gates of the card; a tensor that
     is neither on the CPU nor on a CUDA device never reaches a twin."""
     assert tts.factor_supported(20, 30, 18, 8) and tts.sweeps_supported(20, 30, 8)
     assert tts.factor_supported(20, 30, 18, 8, torch.float64)
     assert tts.factor_supported(1, 5, 3, 3) and tts.sweeps_supported(1, 5, 3)
+    # float32 at the oscillators' shape: Sp and LS (30 x 36 each), two [S|Z]
+    # and one [L'|Z] (30 x 44 each), the border sum and the pivot
+    # reciprocals (64 + 36), four tail rows of 44
     assert tts.factor_smem_bytes(30, 18, 8) == 4 * (
-        4 * 30 * 31 + 3 * 30 * 8 + 2 * 18 * 19 + 12 * 19 + 2 * 12 * 13 + 18 * 13 + 64)
+        2 * 30 * 36 + 3 * 30 * 44 + 100 + 4 * 44)
+    assert tts.factor_smem_bytes(30, 18, 8) == 25584
+    assert tts.factor_smem_bytes(30, 18, 8, torch.float64) == 48704
     assert not tts.factor_supported(20, 300, 200, 8)
     assert not tts.factor_supported(20, 30, 30, 8) and not tts.factor_supported(0, 30, 18, 8)
     assert not tts.sweeps_supported(20, 400, 8)
