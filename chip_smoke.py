@@ -32,8 +32,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
    float64 and float32, at the oscillators' shape, on a ragged batch and on
    a single-stage problem; float32 K4 and its twin both against float64 on
    ill-conditioned blocks (the six-term construction of the reference's
-   test; real interior-point iterations of the oscillator path); K4, K2 and
-   K5 together against a dense solve
+   test; real interior-point iterations of the oscillator path); K5 also on
+   inputs whose base pointers are not 16-byte aligned; K4, K2 and K5
+   together against a dense solve; a ``K4-speed`` and a ``K5-speed`` line
 7. LMPC main path, float32: the closed loop through K1 and K2, launch
    counts, status mix, success fraction; the unbatched float32 golden
 8. LMPC matched-state accuracy against the float64 closed-loop oracle
@@ -53,7 +54,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
 times; ``--phases k4`` is K4's one-minute check: its twin comparisons and a
-``K4-speed`` line with its time, bound, registers and spills),
+``K4-speed`` line with its time, bound, registers and spills; ``--phases
+k5`` is K5's, with a ``K5-speed`` line),
 ``--profile`` adds a ``torch.profiler`` breakdown of the two NLMPC loops
 (and the oscillator rollout's idle share from one traced window),
 ``--sweep-k3`` times K3 for several warps per block and ``--k4-clocks``
@@ -1332,6 +1334,7 @@ TRAJ_CASES = ((B_OSC, PH_O, BSP_O, NX_O, W_O), (1003, PH_O, BSP_O, NX_O, W_O),
               (256, 6, 5, 3, 12), (1024, 10, 3, 2, 3), K4_LARGEST_F64)
 K4_MS_BEFORE = 2.327  # K4 float32 at the oscillators' shape before its redesign (PERF.md)
 K4_SLACK = 3.0  # float32 K4 against float64, as a multiple of its twin's distance
+K5_MS_BEFORE = 0.551  # K5 float32 at the oscillators' shape before its redesign (PERF.md)
 
 
 def osc_kkt_blocks(torch, lt, tk, lanes=64, keep=(0, 4, 9, 19)):
@@ -1506,16 +1509,16 @@ def phase_k4_speed(torch, ts, card):
 
 def phase_k5(torch, ts, batched_linalg):
     """K5 against its twin on the card, on the factors the twin of K4 makes of
-    the same data: float64 within 1e-10 of scale on xs and g; float32 within
-    1e-5 of (scale + 1), the tolerance of tests/test_trajectory_kkt.py:133-135.
-    Then K4, K2 and K5 together against ``numpy.linalg.solve`` of the
-    assembled matrix on three lanes, float64, 1e-9."""
+    the same data, at every ``TRAJ_CASES`` shape: float64 within 1e-10 of
+    scale on xs and g; float32 within 1e-5 of (scale + 1), the tolerance of
+    tests/test_trajectory_kkt.py:133-135.  Then K4, K2 and K5 together
+    against ``numpy.linalg.solve`` of the assembled matrix on three lanes,
+    float64, 1e-9; then K5 on unaligned inputs."""
     res = {}
     for B, ph, bs_p, nx, w in TRAJ_CASES:
         bs = bs_p + nx
-        if not ts.sweeps_supported(ph, bs, w, torch.float64):
-            phase("K5", B=B, ph=ph, bs=bs, w=w, skipped="past K5's shared-memory gate")
-            continue
+        require(ts.sweeps_supported(ph, bs, w, torch.float64),
+                f"K5's gate admits B={B} ph={ph} bs={bs} w={w} in float64")
         data = traj_blocks(B, ph, bs_p, nx, w, seed=B)
         rng = np.random.default_rng(B + 1)
         r_h = rng.normal(size=(B, ph * bs + w))
@@ -1555,7 +1558,100 @@ def phase_k5(torch, ts, batched_linalg):
         phase("K4+K2+K5-dense", dtype="float64", B=B, ph=ph, lanes=3,
               rel_err=f"{worst:.3e}", tol=1e-9)
         require(worst <= 1e-9, f"factor and solve within 1e-9 of a dense solve (B={B}, ph={ph})")
+    phase_k5_unaligned(torch, ts)
     return res
+
+
+def unaligned_copy(torch, t, offset=1):
+    """A contiguous copy of ``t`` whose storage starts ``offset`` elements
+    into a larger buffer, so that its base pointer is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase_k5_unaligned(torch, ts):
+    """K5 on inputs whose base pointers sit one element past a 16-byte
+    boundary (the copies then move 4- or 8-byte chunks), at the oscillators'
+    shape and at bs = 33, against the twin with ``phase_k5``'s tolerances."""
+    for B, ph, bs_p, nx, w in (TRAJ_CASES[0], (256, 20, 20, 13, 9)):
+        bs = bs_p + nx
+        t64 = [torch.as_tensor(a, device="cuda")
+               for a in traj_blocks(B, ph, bs_p, nx, w, seed=B + 2)]
+        Sinv, X, Ghat = ts.traj_factor_plain(*t64, bs_p)
+        Gi = torch.linalg.inv(_sym(Ghat))
+        g = torch.Generator("cuda").manual_seed(B)
+        rs = torch.randn((B, ph, bs), dtype=torch.float64, device="cuda", generator=g)
+        rg = torch.randn((B, w), dtype=torch.float64, device="cuda", generator=g)
+        for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+            args = [unaligned_copy(torch, a.to(dtype)) for a in (Sinv, t64[1], X, Gi, rs, rg)]
+            require(all(a.data_ptr() % 16 != 0 and a.is_contiguous() for a in args),
+                    "unaligned copies")
+            got = ts.batched_sweep_solve(*args)
+            want = ts.traj_solve_plain(*args)
+            torch.cuda.synchronize()
+            scale = want[0].abs().max().item() + (1.0 if dtype == torch.float32 else 0.0)
+            err = [(g_ - w_).abs().max().item() / scale for g_, w_ in zip(got, want)]
+            name = str(dtype).split(".")[-1]
+            phase("K5-unaligned", dtype=name, B=B, ph=ph, bs=bs, w=w,
+                  err_xs_g_over_scale="/".join(f"{e:.2e}" for e in err), tol=tol)
+            require(max(err) <= tol, f"K5 {name} on unaligned inputs within {tol} of its twin")
+
+
+def sweep_inputs(torch, ts, batched_linalg, data):
+    """K5's arguments at the oscillators' shape from the blocks ``data`` (D,
+    L, C, G): K4's factors, the border inverse through K2, a random
+    right-hand side."""
+    dtype = data[0].dtype
+    Sinv, X, Ghat = ts.batched_factor(*data, BSP_O)
+    Gi = batched_linalg.chol_inverse(_sym(Ghat).contiguous())
+    g = torch.Generator("cuda").manual_seed(0)
+    rs = torch.randn((B_OSC, PH_O, BS_O), dtype=dtype, device="cuda", generator=g)
+    rg = torch.ones((B_OSC, W_O), dtype=dtype, device="cuda")
+    return (Sinv, data[1], X, Gi, rs, rg)
+
+
+def phase_k5_speed(torch, ts, batched_linalg, card):
+    """K5's time at the oscillators' shape (CUDA events), float32 and
+    float64, beside its bound, its time before the redesign, its registers
+    and spills and its shared memory; float32 also at each number of
+    instances a block and with one instance per SM (B = the SM count: one
+    instance's chain alone)."""
+    blocks = traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)
+    args = {dt: sweep_inputs(torch, ts, batched_linalg,
+                             [torch.as_tensor(a, dtype=dt, device="cuda") for a in blocks])
+            for dt in (torch.float32, torch.float64)}
+    times = {dt: cuda_ms(torch, lambda: ts.batched_sweep_solve(*a), reps=50)
+             for dt, a in args.items()}
+    warps, by_warps = ts.SWEEP_WARPS, {}
+    try:
+        for nw in (1, 2, 4, 8):
+            ts.SWEEP_WARPS = nw
+            by_warps[nw] = cuda_ms(
+                torch, lambda: ts.batched_sweep_solve(*args[torch.float32]), reps=50)
+    finally:
+        ts.SWEEP_WARPS = warps
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    one = [a[:n_sm].contiguous() for a in args[torch.float32]]
+    t_one = cuda_ms(torch, lambda: ts.batched_sweep_solve(*one), reps=50)
+    bound, by = traj_sweep_bound_ms(B_OSC, PH_O, BS_O, W_O)
+    res = kernel_resources(_build_mod().build_info.get("log", ""), "traj_sweep_kernel")
+    fmt = lambda r: (f"{r.get('registers')}/{r.get('spill_stores')}/{r.get('spill_loads')}"
+                     if r else "not measured")
+    smem = {dt: ts.sweep_smem_bytes(PH_O, BS_O, W_O, dt) for dt in args}
+    phase("K5-speed", card=repr(card), shape=f"B={B_OSC},ph={PH_O},bs={BS_O},w={W_O}",
+          ms_float32=f"{times[torch.float32]:.4f}", ms_float64=f"{times[torch.float64]:.4f}",
+          ms_before=K5_MS_BEFORE, bound_ms=f"{bound:.5f}", bound_by=by,
+          instances_per_block=warps,
+          ms_float32_by_instances_per_block="/".join(f"{k}:{v:.4f}" for k, v in by_warps.items()),
+          **{f"ms_float32_B{n_sm}_one_per_sm": f"{t_one:.4f}"},
+          regs_spill_st_ld_float32=fmt(res.get("float32")),
+          regs_spill_st_ld_float64=fmt(res.get("float64")),
+          smem_bytes_per_instance_float32=smem[torch.float32],
+          smem_bytes_per_instance_float64=smem[torch.float64],
+          smem_bytes_per_block=f"{warps * smem[torch.float32]}/{warps * smem[torch.float64]}")
+    return times
 
 
 K2_BLOCKED_SHAPES = ((256, NZ_O + 1), (256, ME_O))  # float32 pdip at oscillator size
@@ -1756,12 +1852,7 @@ def phase_times_osc(torch, lt, tk, host, mods, ts, batched_linalg, card, main_wa
             for a in traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)]
     k4_ms = cuda_ms(torch, lambda: ts.batched_factor(*data, BSP_O), reps=20)
     k4_plain = cuda_ms(torch, lambda: ts.traj_factor_plain(*data, BSP_O), reps=3, warmup=1)
-    Sinv, X, Ghat = ts.batched_factor(*data, BSP_O)
-    Gi = batched_linalg.chol_inverse(_sym(Ghat).contiguous())
-    rs = torch.randn((B_OSC, PH_O, BS_O), dtype=f32, device=dev,
-                     generator=torch.Generator(dev).manual_seed(0))
-    rg = torch.ones((B_OSC, W_O), dtype=f32, device=dev)
-    sweep = (Sinv, data[1], X, Gi, rs, rg)
+    sweep = sweep_inputs(torch, ts, batched_linalg, data)
     k5_ms = cuda_ms(torch, lambda: ts.batched_sweep_solve(*sweep), reps=20)
     k5_plain = cuda_ms(torch, lambda: ts.traj_solve_plain(*sweep), reps=3, warmup=1)
     k4_bound, k4_by = traj_factor_bound_ms(B_OSC, PH_O, BS_O, BSP_O, W_O)
@@ -1856,6 +1947,7 @@ def main(argv=None) -> int:
         phase_k4_speed(torch, ts, card)
     if "k5" in want:
         k5_err = phase_k5(torch, ts, batched_linalg)
+        phase_k5_speed(torch, ts, batched_linalg, card)
     if "lmpc" in want:
         launches, _ = phase_main(torch, lt, mods)
         phase_matched(torch, lt)

@@ -67,6 +67,29 @@ _ARMIJO_C1 = 1e-4
 # and must not depend on what this port's CUDA kernel can take.
 _SOC_EXACT_MAX = 52
 
+# The fused engine's size gate, the JAX package's: its Pallas kernel's VMEM
+# footprint of one 128-lane tile (``libmpc_tpu/ops/qp_inner_pallas.py:35-67``:
+# inputs and outputs double-buffered, the factorization scratch once) must
+# stay under 8 MiB.  Kept as a constant of the algorithm, like
+# ``_SOC_EXACT_MAX``: which engine serves a request decides its answer, and
+# must not depend on what this port's CUDA kernel can take.
+_FUSED_TILE_B = 128
+_FUSED_BUDGET_BYTES = 8 * 1024 * 1024
+
+
+def _fused_tile_bytes(n: int, m: int) -> int:
+    words_in = n * n + m * n + 3 * n + 5 * m + 1
+    words_out = n + 2 * m + 4
+    words_scratch = 3 * n * n + n + 3 * m + 1
+    return 4 * _FUSED_TILE_B * (2 * (words_in + words_out) + words_scratch)
+
+
+def _fused_size_ok(n: int, m: int) -> bool:
+    """Whether the JAX package would run an (n, m) subproblem on its fused
+    engine (``qp_inner_pallas.supported``)."""
+    return _fused_tile_bytes(n, m) < _FUSED_BUDGET_BYTES
+
+
 _HESSIAN_MODES = ("gershgorin", "eigh", "power", "gauss_newton", "bfgs")
 
 
@@ -218,22 +241,22 @@ def inner_engine(params: NLParameters, dtype: torch.dtype, nz: int, m_qp: int,
     """The inner-QP engine a solve runs: ``"fused"``, ``"riccati"`` or
     ``"pdip"``.
 
-    Routing of ``libmpc_tpu/ops/sqp.py:225-263``.  ``plan_ok`` says that the
+    Routing of ``libmpc_tpu/ops/sqp.py:218-263``.  ``plan_ok`` says that the
     controller verified the NLP's banded structure, the curvature mode keeps
-    it and the shapes match the plan.  Then an explicit ``"riccati"`` request
-    runs the banded-KKT interior point, and so does a ``"fused"`` request
-    the fused kernel cannot serve (float64, or past its size gate).  Without
-    a plan ``"riccati"`` degrades to ``"pdip"``, a float64 ``"fused"``
-    request runs ``"pdip"`` (an f32 inner direction cannot drive the outer
-    loop to 1e-7 stationarity), and a float32 ``"fused"`` request past the
-    gate raises, because the engine the JAX package gives it (the inner
-    ``"admm"``) is not ported; no request quietly becomes another engine
-    than the JAX package's.
-
-    The fused gate is the card's (``qp_inner_fused.supported``: one instance
-    within a block's shared memory), not the TPU kernel's VMEM gate, so a
-    mid-size problem may take the fused kernel here and the banded engine in
-    the JAX package.
+    it and the shapes match the plan.  A float32 ``"fused"`` request runs
+    the fused kernel where the JAX package's size gate
+    (:func:`_fused_size_ok`) admits (nz, m_qp).  With a plan an explicit
+    ``"riccati"`` request runs the banded-KKT interior point, and so does a
+    ``"fused"`` request the fused engine does not serve (float64, or past
+    that gate).  Without a plan ``"riccati"`` degrades to ``"pdip"``, a
+    float64 ``"fused"`` request runs ``"pdip"`` (an f32 inner direction
+    cannot drive the outer loop to 1e-7 stationarity), and a float32
+    ``"fused"`` request past the gate raises, because the engine the JAX
+    package gives it (the inner ``"admm"``) is not ported; no request
+    quietly becomes another engine than the JAX package's.  A shape the
+    gate admits but the CUDA kernel's shared memory does not
+    (``qp_inner_fused.supported``) raises too; the gate is the stricter of
+    the two at every shape so far.
     """
     if params.inner_qp not in ("fused", "pdip", "riccati", "admm"):
         raise ValueError(f"unknown inner_qp {params.inner_qp!r}")
@@ -245,7 +268,12 @@ def inner_engine(params: NLParameters, dtype: torch.dtype, nz: int, m_qp: int,
         )
     f32 = dtype == torch.float32
     fused_req = params.inner_qp == "fused"
-    use_fused = fused_req and f32 and qp_inner_fused.supported(nz, m_qp, dtype)
+    use_fused = fused_req and f32 and _fused_size_ok(nz, m_qp)
+    if use_fused and not qp_inner_fused.supported(nz, m_qp, dtype):
+        raise NotImplementedError(
+            f"inner_qp='fused': a subproblem of n={nz}, m={m_qp} is within the "
+            "JAX package's fused size gate but past the CUDA kernel's shared "
+            "memory (qp_inner_fused.supported)")
     if plan_ok and (params.inner_qp == "riccati" or (fused_req and not use_fused)):
         return "riccati"
     if params.inner_qp in ("pdip", "riccati") or (fused_req and not f32):
@@ -254,8 +282,9 @@ def inner_engine(params: NLParameters, dtype: torch.dtype, nz: int, m_qp: int,
         return "fused"
     raise NotImplementedError(
         f"inner_qp='fused': a subproblem of n={nz}, m={m_qp} is past the "
-        "fused kernel's shared-memory gate (qp_inner_fused.supported) and the "
-        "NLP has no verified banded structure for the 'riccati' engine; the "
+        "fused engine's size gate (the JAX package's VMEM formula, stricter "
+        "than the CUDA kernel's shared-memory gate) and the NLP has no "
+        "verified banded structure for the 'riccati' engine; the "
         "JAX package routes such a request to the inner 'admm' engine, which "
         "is not ported yet (ROADMAP.md queue 1: inner_qp='admm')"
     )

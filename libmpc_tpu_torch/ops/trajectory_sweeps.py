@@ -58,17 +58,27 @@ check.
   ``cp.async`` while the current stage computes.  The first pass writes
   ``S_k^-1`` and ``U_k = S_k^-1 Z_k`` out; the backward pass of the same
   block reads them back.
-* The solve does two operations per word it reads, so bytes bound it.  One
-  warp owns one instance: the running vectors (``ph * bs`` values) stay in
-  shared memory, ``S_k^-1``, ``L_k`` and ``X_k`` stream through it once
-  forward and once backward, and a lane computes one row of each product.
+* The solve does two operations per word it reads, so bytes bound it:
+  ``S_k^-1``, ``L_k`` and ``X_k``, read once forward and once backward,
+  and one instance is a chain of ``2 ph - 1`` steps, so each step's stage
+  must already be on its way when the step before ends.  One warp owns one
+  instance and one instance a block: the stage's three matrices sit
+  contiguous in one of two stage buffers, and while a step computes the
+  next step's buffer fills by ``cp.async`` (16-byte chunks, or 8 or 4 bytes
+  where a base pointer or a stride is not 16-byte aligned), forward and
+  backward through one pipeline; ``r`` is loaded whole and turned into
+  ``u`` in place.  A lane computes one row of each product; rows are read
+  two elements a load and columns across lanes, so neither collides on a
+  bank.
 
 Measured on an NVIDIA H100 80GB HBM3 (700 W) at B=1024, ph=20, bs=30, w=8,
-float32 (``chip_smoke.py``): the factorization 1.04 ms (2.33 before this
-design) against a bound of 0.077 ms, and 0.58 ms with one instance per SM
+float32 (``chip_smoke.py``): the factorization 1.04 ms (2.33 before its
+redesign) against a bound of 0.077 ms, and 0.58 ms with one instance per SM
 alone, so one instance's chain of barrier phases, of which the two SPD
 inverses are about half (``--k4-clocks``), is most of its time; the solve
-0.55 ms against 0.050 ms (``PERF.md``).
+0.119 ms (0.549 before its redesign; float64 0.233) against 0.050 ms for
+every byte read once and 0.099 ms with the backward re-read, and 0.074 ms
+with one instance per SM alone (``PERF.md``).
 
 :func:`factor_supported` and :func:`sweeps_supported` are the kernels' own
 gates: the shared memory of one instance must fit the 227 KB a block can
@@ -85,7 +95,7 @@ from . import _build, batched_linalg
 
 SMEM_LIMIT_BYTES = 232448  # dynamic shared memory one Hopper block can use
 FACTOR_THREADS = 128  # threads of the block that owns one instance (K4; 64, 256 slower)
-SWEEP_WARPS = 4  # warps (= instances) per block (K5)
+SWEEP_WARPS = 1  # instances (one warp each) per block (K5; 2, 4, 8 no faster)
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -129,19 +139,29 @@ def factor_supported(ph: int, bs: int, bs_p: int, w: int,
             and factor_smem_bytes(bs, bs_p, w, dtype) <= SMEM_LIMIT_BYTES)
 
 
+def _round16(n: int, itemsize: int) -> int:
+    a = 16 // itemsize
+    return (n + a - 1) // a * a
+
+
 def sweep_smem_bytes(ph: int, bs: int, w: int,
                      dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one block of the sweep kernel: per warp two ``bs`` x
-    ``bs`` matrices (odd leading dimension), one ``bs`` x ``w``, the ``ph``
-    running vectors, three work vectors of ``bs`` and two of ``w``."""
-    ld = bs | 1
-    words = 2 * bs * ld + bs * w + ph * bs + 3 * bs + 2 * w
-    return SWEEP_WARPS * words * _itemsize(dtype)
+    """Shared memory of one instance in the sweep kernel
+    (``csrc/traj_sweep.cu::sweep_layout``): two stage buffers of ``S^-1``,
+    ``L`` (``bs`` x ``bs`` each) and ``X`` (``bs`` x ``w``) stored
+    contiguous, the ``ph`` running vectors, two work vectors of ``bs`` and
+    two of ``w``, every piece on a 16-byte boundary."""
+    it = _itemsize(dtype)
+    r = lambda n: _round16(n, it)
+    stage = 2 * r(bs * bs) + r(bs * w)
+    words = 2 * stage + r(ph * bs) + 2 * r(bs) + 2 * r(w)
+    return words * it
 
 
 def sweeps_supported(ph: int, bs: int, w: int,
                      dtype: torch.dtype = torch.float32) -> bool:
-    """Whether the CUDA sweep kernel takes this shape."""
+    """Whether the CUDA sweep kernel takes this shape: one instance within a
+    block's shared memory."""
     return (ph >= 1 and bs >= 1 and w >= 1
             and sweep_smem_bytes(ph, bs, w, dtype) <= SMEM_LIMIT_BYTES)
 
@@ -302,7 +322,7 @@ def batched_sweep_solve(Sinv, L, X, Ghat_inv, r_stage, r_g) -> Tuple[torch.Tenso
     if not sweeps_supported(ph, bs, w, dtype):
         raise ValueError(
             f"traj_sweep kernel: ph={ph}, bs={bs}, w={w} ({dtype}) needs "
-            f"{sweep_smem_bytes(ph, bs, w, dtype)} bytes of shared memory per block; "
+            f"{sweep_smem_bytes(ph, bs, w, dtype)} bytes of shared memory per instance; "
             f"a block has {SMEM_LIMIT_BYTES}")
     _check("Sinv", Sinv, (B, ph, bs, bs), dtype, dev)
     _check("L", L, (B, ph - 1, bs, bs), dtype, dev)

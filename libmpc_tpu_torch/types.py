@@ -236,14 +236,15 @@ class NLParameters(Parameters):
     The field names, defaults and the measurements quoted in the comments
     are the JAX package's (taken on a TPU).  In this port ``inner_qp="fused"``
     is the hand-written CUDA kernel of ``ops/qp_inner_fused.py`` (float32,
-    up to the size one instance fits a block's shared memory) and
-    ``"riccati"`` the banded-KKT interior point of ``ops/trajectory_kkt.py``
-    through the CUDA kernels of ``ops/trajectory_sweeps.py``, which also
-    serves a ``"fused"`` request in float64 or past that size when the
-    controller verified the NLP's stage-local structure (routing:
-    ``ops/sqp.py::inner_engine``).  ``"admm"``, and with it an oversize
-    float32 ``"fused"`` request without a verified structure, raises
-    ``NotImplementedError`` until it is ported.
+    up to the JAX package's size gate for its fused engine, restated in
+    ``ops/sqp.py``) and ``"riccati"`` the banded-KKT interior point of
+    ``ops/trajectory_kkt.py`` through the CUDA kernels of
+    ``ops/trajectory_sweeps.py``, which also serves a ``"fused"`` request in
+    float64 or past that size when the controller verified the NLP's
+    stage-local structure (routing: ``ops/sqp.py::inner_engine``, the JAX
+    package's).  ``"admm"``, and with it an oversize float32 ``"fused"``
+    request without a verified structure, raises ``NotImplementedError``
+    until it is ported.
 
     ``hessian_reg`` (TPU-native extension) selects the curvature model of
     the QP subproblem:

@@ -251,18 +251,25 @@ def test_traj_factor_float32_is_as_close_to_float64_as_its_twin(cuda):
     assert np.median(kernel.max(axis=0)) <= 3.0 * np.median(twin.max(axis=0))
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-10)])
-@pytest.mark.parametrize("B,ph,bs_p,nx,w", _TRAJ_SHAPES)
-def test_traj_sweep_kernel_matches_twin(cuda, dtype, tol, B, ph, bs_p, nx, w):
-    """K5 on the twin's float64 factors of the same data: xs and g within
-    ``tol`` of (scale + 1)."""
-    D, L, C, G = _traj_data(B, ph, bs_p, nx, w, torch.float64, cuda, seed=1)
+def _sweep_args(B, ph, bs_p, nx, w, dtype, device, unaligned=False):
+    """K5's arguments from the twin's float64 factors of ``_traj_data``; with
+    ``unaligned`` each is a contiguous view one element into a larger buffer,
+    so that no base pointer is 16-byte aligned."""
+    D, L, C, G = _traj_data(B, ph, bs_p, nx, w, torch.float64, device, seed=1)
     Sinv, X, Ghat = tsw.traj_factor_plain(D, L, C, G, bs_p)
     Gi = torch.linalg.inv(0.5 * (Ghat + Ghat.transpose(1, 2)))
     rng = np.random.default_rng(2)
-    rs = torch.as_tensor(rng.normal(size=(B, ph, bs_p + nx)), device=cuda)
-    rg = torch.as_tensor(rng.normal(size=(B, w)), device=cuda)
+    rs = torch.as_tensor(rng.normal(size=(B, ph, bs_p + nx)), device=device)
+    rg = torch.as_tensor(rng.normal(size=(B, w)), device=device)
     args = [t.to(dtype).contiguous() for t in (Sinv, L, X, Gi, rs, rg)]
+    if unaligned:
+        args = [chip_smoke.unaligned_copy(torch, t) for t in args]
+        # (L of a single-stage problem is empty and has no storage to offset)
+        assert all(t.data_ptr() % 16 and t.is_contiguous() for t in args if t.numel())
+    return args
+
+
+def _check_sweep(args, tol):
     launches = tsw.batched_sweep_solve.launches
     got = tsw.batched_sweep_solve(*args)
     want = tsw.traj_solve_plain(*args)
@@ -271,6 +278,38 @@ def test_traj_sweep_kernel_matches_twin(cuda, dtype, tol, B, ph, bs_p, nx, w):
     scale = want[0].abs().max().item() + 1.0
     for g, w_ in zip(got, want):
         assert (g - w_).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("B,ph,bs_p,nx,w", _TRAJ_SHAPES)
+def test_traj_sweep_kernel_matches_twin(cuda, dtype, tol, B, ph, bs_p, nx, w):
+    """K5 on the twin's float64 factors of the same data: xs and g within
+    ``tol`` of (scale + 1)."""
+    _check_sweep(_sweep_args(B, ph, bs_p, nx, w, dtype, cuda), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("B,ph,bs_p,nx,w", [(64, 20, 18, 12, 8), (37, 20, 20, 13, 9),
+                                            (5, 1, 3, 2, 3)])
+def test_traj_sweep_kernel_on_unaligned_inputs(cuda, dtype, tol, B, ph, bs_p, nx, w):
+    """K5 on inputs whose base pointers are not 16-byte aligned (each a
+    contiguous view one element into a larger buffer: the kernel then copies
+    in 4- or 8-byte chunks), with the same tolerances."""
+    _check_sweep(_sweep_args(B, ph, bs_p, nx, w, dtype, cuda, unaligned=True), tol)
+
+
+def test_traj_sweep_kernel_at_the_largest_float64_factor_block(cuda):
+    """K5 at ``K4_LARGEST_F64`` (bs = 72) in float64, one instance a block
+    with two 87.5 KB stage buffers."""
+    B, ph, bs_p, nx, w = chip_smoke.K4_LARGEST_F64
+    assert tsw.sweeps_supported(ph, bs_p + nx, w, torch.float64)
+    args = _sweep_args(B, ph, bs_p, nx, w, torch.float64, cuda)
+    got = tsw.batched_sweep_solve(*args)
+    want = tsw.traj_solve_plain(*args)
+    torch.cuda.synchronize()
+    scale = want[0].abs().max().item()
+    for g, w_ in zip(got, want):
+        assert (g - w_).abs().max().item() <= 1e-10 * scale
 
 
 def test_traj_kernels_refuse_what_they_do_not_take(cuda):

@@ -321,3 +321,57 @@ def test_oversize_fused_request_with_a_plan_runs_the_banded_engine():
         assert r.cmd.dtype == torch.float32 and (r.status == 0).all()
         cmds.append(r.cmd)
     assert torch.equal(cmds[0], cmds[1])
+
+
+def test_ugv_float32_fused_request_runs_the_banded_engine():
+    """The UGV NLP of examples/ugv_ex.py (nz = 61, m_qp = 123) in float32 with
+    the default ``NLParameters``: the fused request is past the JAX package's
+    fused size gate and the NLP's banded structure is verified, so the banded
+    engine serves it, as in the JAX package, and not the fused kernel, whose
+    shared memory would take the size."""
+    from libmpc_tpu_torch.ops import qp_inner_fused as tqf
+    from libmpc_tpu_torch.ops import trajectory_kkt as ttk
+
+    nx, nu, ph, n_obs = 4, 2, 10, 2
+    A = np.zeros((4, 4))
+    A[0:2, 2:4] = np.eye(2)
+    Bm = np.zeros((4, 2))
+    Bm[2:4, 0:2] = np.eye(2)
+    f32 = torch.float32
+    Ad_t, Bd_t = (M.to(f32) for M in lt.discretization(A, Bm, 0.1))
+    obstacles = torch.tensor([[2.0, 1.0], [1.0, 1.0]], dtype=f32)
+    radii = torch.tensor([0.3, 0.3], dtype=f32)
+
+    def objective(X, Y, U, e, p):
+        v_err = X[:, 2:4] - p["v_pref"][None, :]
+        return 1e3 * torch.sum(v_err**2) + 1e-2 * torch.sum(U**2) + 1e-5 * e * e
+
+    def ineq(X, Y, U, e):
+        d = torch.sqrt(torch.sum((X[:, None, 0:2] - obstacles[None]) ** 2, dim=-1))
+        return (radii[None, :] - d).reshape(-1)
+
+    c = lt.NLMPC(nx, nu, 4, ph, ph, (ph + 1) * n_obs, 0, dtype=f32, device="cpu")
+    assert c.set_state_space_function(lambda x, u, k: Ad_t @ x + Bd_t @ u)
+    assert c.set_output_function(lambda x, u, k: x)
+    assert c.set_objective_function(objective)
+    assert c.set_ineq_con_function(ineq)
+    c.set_runtime_params({"v_pref": torch.tensor([0.7071, 0.7071])})
+    c.set_optimizer_parameters(lt.NLParameters(maximum_iteration=4))
+    d = c.dims
+    me = d.ph * d.nx + d.eq
+    assert (d.nz, me + d.ineq + d.nz) == (61, 123)
+    plan = c._get_traj_plan()
+    assert plan == ttk.TrajPlan(ph=ph, ch=ph, nx=nx, nu=nu, mi=(ph + 1) * n_obs)
+    assert tsqp.inner_engine(c._params, f32, 61, 123,
+                             tsqp.plan_applies(plan, c._params, 61, me, d.ineq)) == "riccati"
+    assert tqf.supported(61, 123)
+    ttk.ipm_solve.trace, tqf.solve_batched.trace = [], []
+    try:
+        r = c.optimize(np.array([[0.0, 0.0, 0.0, 0.0], [0.1, -0.1, 0.0, 0.0]]),
+                       np.zeros((2, nu)))
+        assert len(ttk.ipm_solve.trace) > 0 and tqf.solve_batched.trace == []
+    finally:
+        ttk.ipm_solve.trace = tqf.solve_batched.trace = None
+    assert r.cmd.dtype == f32 and tuple(r.cmd.shape) == (2, nu)
+    assert bool(torch.isfinite(r.cmd).all())
+    assert (r.status == int(lt.ResultStatus.SUCCESS)).all(), r.status

@@ -179,6 +179,68 @@ def test_fused_request_past_the_gate_raises_and_float64_routes_to_pdip():
         _torch_solve(z0, x0, lb, ub, NLParameters(hessian_reg="newton"))
 
 
+# (nz, m_qp): Van der Pol (26, 57), shapes on both sides of the JAX
+# package's fused gate, the UGV NLP of examples/ugv_ex.py (61, 123), the
+# largest and smallest shapes the CUDA kernel's shared memory admits and
+# refuses (103, 226) / (105, 231), the oscillators (301, 842), and a sweep of
+# m_qp = 2 nz + 1 across the gate
+GATE_GRID = ([(26, 57), (38, 80), (39, 90), (40, 92), (61, 123), (103, 226), (105, 231),
+              (301, 842)] + [(nz, 2 * nz + 1) for nz in range(20, 61)])
+
+
+@pytest.mark.parametrize("nz,m_qp", GATE_GRID)
+def test_fused_size_gate_is_the_jax_packages(nz, m_qp):
+    """The port's restated fused gate equals the JAX package's VMEM formula
+    (``libmpc_tpu/ops/qp_inner_pallas.py:45-67``) and, where it admits a
+    shape, the CUDA kernel takes it too."""
+    from libmpc_tpu.ops import qp_inner_pallas
+    from libmpc_tpu_torch.ops import qp_inner_fused
+
+    assert tsqp._fused_size_ok(nz, m_qp) == qp_inner_pallas.supported(nz, m_qp)
+    if tsqp._fused_size_ok(nz, m_qp):
+        assert qp_inner_fused.supported(nz, m_qp)
+
+
+def _jax_engine(inner_qp, f32, nz, m_qp, plan_ok):
+    """The decision of ``libmpc_tpu/ops/sqp.py:218-263`` on a CPU (or TPU)
+    backend, as a truth table: the engine's name, or None where the JAX
+    package runs its inner ``"admm"``, which the port does not have yet."""
+    from libmpc_tpu.ops import qp_inner_pallas
+
+    fused_req = inner_qp == "fused"
+    use_fused = fused_req and f32 and qp_inner_pallas.supported(nz, m_qp)
+    use_traj = plan_ok and (inner_qp == "riccati" or (fused_req and not use_fused))
+    use_pdip = not use_traj and (inner_qp in ("pdip", "riccati")
+                                 or (fused_req and not use_fused and not f32))
+    return ("fused" if use_fused else "riccati" if use_traj else "pdip" if use_pdip
+            else None)
+
+
+@pytest.mark.parametrize("nz,m_qp", GATE_GRID)
+def test_inner_engine_routes_as_the_jax_package(nz, m_qp):
+    """Every request (fused, riccati, pdip), float32 and float64, with and
+    without a verified banded plan, gets the JAX package's engine; where that
+    is the inner ``"admm"`` the port raises and names ROADMAP.md."""
+    for inner in ("fused", "riccati", "pdip"):
+        par = NLParameters(inner_qp=inner)
+        for dtype in (torch.float32, torch.float64):
+            for plan_ok in (True, False):
+                want = _jax_engine(inner, dtype == torch.float32, nz, m_qp, plan_ok)
+                if want is None:
+                    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                        tsqp.inner_engine(par, dtype, nz, m_qp, plan_ok)
+                else:
+                    assert tsqp.inner_engine(par, dtype, nz, m_qp, plan_ok) == want, (
+                        inner, dtype, plan_ok)
+    # the mid-size shapes the CUDA kernel would take: banded with a plan,
+    # raising without one
+    if (nz, m_qp) in ((40, 92), (61, 123)):
+        fused = NLParameters(inner_qp="fused")
+        assert tsqp.inner_engine(fused, torch.float32, nz, m_qp, True) == "riccati"
+        with pytest.raises(NotImplementedError, match="shared-memory gate"):
+            tsqp.inner_engine(fused, torch.float32, nz, m_qp, False)
+
+
 def test_host_reads_are_counted():
     """Every loop test of the host-driven solver goes through ``_host.flag``:
     one read per SQP iteration plus one per line-search trial and per

@@ -208,6 +208,23 @@ def test_factor_gate(ph, bs, bs_p, w, dtype, admitted):
     assert (tts.factor_smem_bytes(bs, bs_p, w, dtype) <= tts.SMEM_LIMIT_BYTES) is admitted
 
 
+@pytest.mark.parametrize("ph,bs,w,dtype,smem,admitted", [
+    # the oscillators: two stage buffers of S^-1, L (900 words each) and X
+    # (240), the 20 running vectors (600) and four work vectors (32 + 32 + 8 + 8
+    # float32, 30 + 30 + 8 + 8 float64: each piece rounded to 16 bytes)
+    (20, 30, 8, _F32, 4 * (2 * (900 + 900 + 240) + 600 + 80), True),
+    (20, 30, 8, _F64, 8 * (2 * (900 + 900 + 240) + 600 + 76), True),
+    (4, 72, 8, _F64, 178688, True),  # the largest float64 block K4 takes
+    (20, 400, 8, _F32, 4 * (2 * (2 * 160000 + 3200) + 8000 + 816), False),
+])
+def test_sweep_gate(ph, bs, w, dtype, smem, admitted):
+    """The sweep kernel's gate is its shared-memory layout
+    (``csrc/traj_sweep.cu::sweep_layout``, one instance) against one block's
+    limit."""
+    assert tts.sweep_smem_bytes(ph, bs, w, dtype) == smem
+    assert tts.sweeps_supported(ph, bs, w, dtype) is admitted
+
+
 def test_gates_and_devices():
     """The kernels' gates are shared-memory gates of the card; a tensor that
     is neither on the CPU nor on a CUDA device never reaches a twin."""
