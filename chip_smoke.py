@@ -27,7 +27,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
    oscillators' border shape (1024,8,8); its blocked recursion at
    (256,302,302) and (256,240,240)
 5. K3 (whole inner-QP solve) against its twin, float64 and float32, ragged
-   batch included
+   batch included; a ``K3-speed`` line
 6. K4 (banded factorization) and K5 (banded solve) against their twins,
    float64 and float32, at the oscillators' shape, on a ragged batch and on
    a single-stage problem; float32 K4 and its twin both against float64 on
@@ -53,13 +53,17 @@ Phases, one line each (any failure raises and the script exits non-zero):
     bound, steady-state and closed-loop solves/s of the three paths
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-times; ``--phases k4`` is K4's one-minute check: its twin comparisons and a
-``K4-speed`` line with its time, bound, registers and spills; ``--phases
-k5`` is K5's, with a ``K5-speed`` line),
-``--profile`` adds a ``torch.profiler`` breakdown of the two NLMPC loops
-(and the oscillator rollout's idle share from one traced window),
-``--sweep-k3`` times K3 for several warps per block and ``--k4-clocks``
-counts the cycles of each barrier phase of K4; with no arguments every
+times; ``--phases k3`` is K3's one-minute check: its twin comparisons and a
+``K3-speed`` line with its float32 and float64 time, bound, registers,
+spills, tier, iteration histogram and one instance's time per iteration;
+``--phases k4`` is K4's, with a ``K4-speed`` line; ``--phases k5`` is
+K5's, with a ``K5-speed`` line),
+``--profile`` adds a ``torch.profiler`` breakdown of the NLMPC loops whose
+phases run (``nlmpc``: Van der Pol; ``osc``: the oscillators, and the
+oscillator rollout's idle share from one traced window),
+``--sweep-k3`` times K3 for several warps per block, ``--k3-clocks`` counts
+the cycles of each phase of K3's register tier and ``--k4-clocks`` those of
+each barrier phase of K4; with no arguments every
 phase runs.  The second-to-last line is one JSON object
 describing each kernel; the last line is ``{"ok": true, "device": {...}}``
 (both only when every phase ran).
@@ -100,6 +104,7 @@ OSC_JAX_SUCCESS = {256: 0.999, 512: 0.9966, 1024: 0.9973}  # the JAX package's f
 # settings of the fused inner-QP solver on the SQP's path (ops/sqp.py)
 K3_KW = dict(sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6, max_iter=300,
              check_every=25)
+K3_MS_BEFORE = 2.566  # K3 float32 at Van der Pol's shape before its redesign (PERF.md)
 # published peaks of one H100 SXM: float32 outside the tensor cores, and the
 # device memory rate
 PEAK_FLOPS_F32 = 67e12
@@ -708,6 +713,77 @@ def phase_k2_nlmpc(torch, batched_linalg):
     return res
 
 
+def k3_qps(B, seed=0, n=N_NL, me=ME_NL, mi=MI_NL, box=True):
+    """Feasible QPs in the SQP's form, float64: ``me`` equality rows,
+    ``mi`` one-sided rows with -inf, and (``box``) ``n`` identity box rows
+    of which some are infinite; rho per row from the masks with a mild
+    equality penalty (1.0), so that float32 rounding is not amplified.
+    Returns P, A, q, l, u, rho."""
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(B, n, n))
+    P = Q @ Q.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+    Aei = rng.normal(size=(B, me + mi, n)) / np.sqrt(n)
+    v = np.einsum("brn,bn->br", Aei, rng.uniform(-0.4, 0.4, size=(B, n)))
+    l = [v[:, :me], np.full((B, mi), -np.inf)]
+    u = [v[:, :me], v[:, me:] + 0.2 * np.abs(rng.normal(size=(B, mi)))]
+    A = [Aei]
+    if box:
+        lo, hi = np.full((B, n), -0.5), np.full((B, n), 0.5)
+        lo[:, ::3], hi[:, 1::3] = -1e20, 1e20
+        l, u, A = l + [lo], u + [hi], A + [np.broadcast_to(np.eye(n), (B, n, n))]
+    l, u, A = (np.concatenate(a, axis=1) for a in (l, u, A))
+    m = A.shape[1]
+    loose = (l <= -1e18) & (u >= 1e18)
+    rho = np.where(loose, 1e-6, np.where(np.arange(m) < me, 1.0, 0.1))
+    return [P, A, 0.2 * rng.normal(size=(B, n)), l, u, rho]
+
+
+def k3_tier(qpf, n, m):
+    """K3's layout for an (n, m) subproblem (a kernel with one layout for
+    every shape, as before the register tier, reads as "shared")."""
+    return qpf.tier(n, m) if hasattr(qpf, "tier") else "shared"
+
+
+def k3_scaled_args(torch, qpf, data, dtype):
+    """The kernel's own inputs: ``data`` (P, A, q, l, u, rho) Ruiz-scaled as
+    ``solve_batched`` scales them, from a cold start."""
+    t = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in data]
+    B, m, n = t[1].shape
+    x0 = torch.zeros((B, n), dtype=dtype, device="cuda")
+    y0 = torch.zeros((B, m), dtype=dtype, device="cuda")
+    Ps, As, qs, ls, us, xs, ys, d, e, c = qpf._scale_problem(*t[:5], x0, y0, 10)
+    return (Ps, As, qs, ls, us, t[5], xs, ys, 1.0 / d, 1.0 / e, 1.0 / c)
+
+
+def k3_refactorizations(torch, qpf, args, kw):
+    """Refactorizations the kernel makes on these scaled inputs after the
+    first factorization, counted on the twin: each time the twin factors
+    the batch again, the lanes whose KKT matrix changed (a lane whose rho
+    did not move gets the same matrix bit for bit).  The twin, like the
+    TPU kernel, also refactors after the last check block, which the CUDA
+    kernel does not; those are left out.  Counted by watching the twin's
+    calls of ``torch.linalg.cholesky_ex`` and the count of its host reads
+    (``_host.flag.reads``: two a check block until the last); the twin
+    itself is not changed."""
+    real = torch.linalg.cholesky_ex
+    flag = qpf._host.flag
+    n_blocks = max(1, (kw["max_iter"] + kw["check_every"] - 1) // kw["check_every"])
+    prev, moves, start = [None], [0], flag.reads
+
+    def watch(M, *a, **k):
+        if prev[0] is not None and (flag.reads - start) // 2 < n_blocks:
+            moves[0] += int((M != prev[0]).flatten(1).any(1).sum().item())
+        prev[0] = M.clone()
+        return real(M, *a, **k)
+
+    torch.linalg.cholesky_ex = watch
+    try:
+        qpf._iterate_plain(*args, **kw)
+    finally:
+        torch.linalg.cholesky_ex = real
+    return moves[0]
+
+
 def k3_case(torch, qpf, data, dtype, **kw):
     """Kernel and twin on the same QPs from a cold start."""
     t = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in data]
@@ -746,7 +822,7 @@ def phase_k3(torch, qpf):
         k, t, rel, absmax = k3_case(torch, qpf, data, torch.float64, **K3_KW)
         same_done = bool(torch.equal(k[4], t[4]))
         same_iters = bool(torch.equal(k[3], t[3]))
-        phase(tag, dtype="float64", B=B, n=N_NL, m=M_NL,
+        phase(tag, dtype="float64", B=B, n=N_NL, m=M_NL, tier=k3_tier(qpf, N_NL, M_NL),
               rel_err_xyz="/".join(f"{r:.2e}" for r in rel), tol=1e-9,
               done_equal=same_done, iters_equal=same_iters,
               done_frac=f"{k[4].float().mean().item():.4f}",
@@ -888,20 +964,24 @@ def phase_golden_f64_nlmpc(torch, lt, mods):
             "float64 golden ran through the banded engine (K4, K5, K2), not K3")
 
 
-def k3_bound_ms(iters, n, m):
+def k3_bound_ms(iters, n, m, refactorizations=0):
     """Least time for K3's work at these iteration counts, float32.
 
     Bytes: every input read once (P, A, q, l, u, rho, x0, y0, dinv, einv,
     cinv) and every output written once (x, y, z, iters, done, pri, dua).
-    Operations per instance: assembling M (3 n^2 m), one Cholesky and inverse
-    (n^3), per iteration two products with A, one with M and two with M^-1
-    (4 m n + 6 n^2), per check Ax, A'y and Px (4 m n + 2 n^2); one
-    factorization is counted (refactorizations after a rho move are not
-    reported by the kernel, so the bound is a lower one)."""
+    Operations per instance: one factorization, and one for each
+    refactorization after a rho move, counted by the caller
+    (``k3_refactorizations``: the kernel does not report them); a
+    factorization is the assembly of M = P + sigma I + A' diag(rho) A (m n
+    scalings of A's rows by rho, then n^2 m multiply-adds, 2 n^2 m
+    operations) and its factorization and inverse (n^3).  Per iteration two
+    products with A, one with M and two with M^-1 (4 m n + 6 n^2); per check
+    Ax, A'y and Px (4 m n + 2 n^2)."""
     iters = np.asarray(iters, dtype=np.float64)
     B = iters.size
     words = B * (n * n + m * n + 3 * n + 5 * m + 1 + n + 2 * m + 4)
-    flops = (B * (3 * n * n * m + n ** 3) + iters.sum() * (4 * m * n + 6 * n * n)
+    flops = ((B + refactorizations) * (2 * n * n * m + m * n + n ** 3)
+             + iters.sum() * (4 * m * n + 6 * n * n)
              + (iters / 25).sum() * (4 * m * n + 2 * n * n))
     return _bound(words, flops)
 
@@ -912,14 +992,13 @@ def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, main_wall=None):
     t = [torch.as_tensor(a, dtype=f32, device=dev) for a in vdp_qps(B_NL, 0)]
     x0 = torch.zeros((B_NL, N_NL), dtype=f32, device=dev)
     y0 = torch.zeros((B_NL, M_NL), dtype=f32, device=dev)
-    Ps, As, qs, ls, us, xs, ys, d, e, c = qpf._scale_problem(*t[:5], x0, y0, 10)
-    args = (Ps, As, qs, ls, us, t[5], xs, ys, 1.0 / d, 1.0 / e, 1.0 / c)
-    kw = dict(K3_KW)
-    kw.update(refine=True)
+    args = k3_scaled_args(torch, qpf, vdp_qps(B_NL, 0), f32)
+    kw = dict(K3_KW, refine=True)
     k3_ms = cuda_ms(torch, lambda: qpf._iterate_kernel(*args, **kw), reps=10)
     k3_plain = cuda_ms(torch, lambda: qpf._iterate_plain(*args, **kw), reps=3, warmup=1)
     iters = qpf._iterate_kernel(*args, **kw)[3].cpu().numpy()
-    k3_bound, k3_by = k3_bound_ms(iters, N_NL, M_NL)
+    refact = k3_refactorizations(torch, qpf, args, kw)
+    k3_bound, k3_by = k3_bound_ms(iters, N_NL, M_NL, refact)
     whole_ms = cuda_ms(torch, lambda: qpf.solve_batched(*t, x0, y0, **K3_KW), reps=10)
     # K2 at the path's shape, beside the one library call for the same function
     C = torch.as_tensor(spd_batch(B_NL, ME_NL, seed=3), dtype=f32, device=dev)
@@ -928,7 +1007,8 @@ def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, main_wall=None):
     k2_lib = cuda_ms(torch, lambda: torch.linalg.inv(C), reps=20)
     phase("times-kernels-nlmpc", card=repr(card), K3_ms=f"{k3_ms:.4f}",
           K3_plain_ms=f"{k3_plain:.4f}", K3_bound_ms=f"{k3_bound:.5f}", K3_bound_by=k3_by,
-          K3_iters_mean=f"{iters.mean():.1f}", K3_with_host_side_ms=f"{whole_ms:.4f}",
+          K3_iters_mean=f"{iters.mean():.1f}", K3_refactorizations_twin=refact,
+          K3_with_host_side_ms=f"{whole_ms:.4f}",
           K3_shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32",
           K2_ms=f"{k2_ms:.4f}", K2_plain_ms=f"{k2_plain:.4f}", K2_library_ms=f"{k2_lib:.4f}",
           K2_shape=f"({B_NL},{ME_NL},{ME_NL}),float32")
@@ -1086,22 +1166,32 @@ def phase_profile_osc_rollout(torch, lt, tk, host, mods, steps=4):
              for k, v in fam.items() if v > 0})
 
 
+def k3_latency_us(torch, qpf, args, kw, B):
+    """Microseconds per iteration of the first ``B`` instances: tolerances
+    of 0 keep every lane iterating to the cap, so (t(300) - t(25)) / 275 is
+    the time of one iteration of one warp at that residency (alone on the
+    card for B = 1, one per SM for B = the SM count).  Returns (ms at 300
+    iterations, ms at 25, us per iteration)."""
+    never = dict(kw, eps_abs=0.0, eps_rel=0.0)
+    sub = tuple(a[:B].contiguous() for a in args)
+    t300 = cuda_ms(torch, lambda: qpf._iterate_kernel(*sub, **never), reps=5)
+    t25 = cuda_ms(torch, lambda: qpf._iterate_kernel(*sub, **dict(never, max_iter=25)), reps=5)
+    return t300, t25, 1e3 * (t300 - t25) / 275
+
+
 def phase_sweep_k3(torch, qpf):
     """``--sweep-k3``: K3 alone (CUDA events) at the path's shape for several
     numbers of warps per block, twice in opposite orders within this one
     process.  The kernel gives each instance one warp; how many share a
     block decides how many instances are resident per SM and is the
-    kernel's only launch parameter."""
-    dev, f32 = "cuda", torch.float32
-    t = [torch.as_tensor(a, dtype=f32, device=dev) for a in vdp_qps(B_NL, 0)]
-    x0 = torch.zeros((B_NL, N_NL), dtype=f32, device=dev)
-    y0 = torch.zeros((B_NL, M_NL), dtype=f32, device=dev)
-    Ps, As, qs, ls, us, xs, ys, d, e, c = qpf._scale_problem(*t[:5], x0, y0, 10)
-    args = (Ps, As, qs, ls, us, t[5], xs, ys, 1.0 / d, 1.0 / e, 1.0 / c)
+    kernel's only launch parameter (the register tier takes at most 4)."""
+    f32 = torch.float32
+    args = k3_scaled_args(torch, qpf, vdp_qps(B_NL, 0), f32)
     kw = dict(K3_KW, refine=True)
     per_warp = qpf.smem_bytes(N_NL, M_NL, f32)
     default, ref = qpf.WARPS_PER_BLOCK, None
-    settings = (1, 2, 3, 4, 6, 8, 12)
+    reg = k3_tier(qpf, N_NL, M_NL) == "register"
+    settings = (1, 2, 3, 4) if reg else (1, 2, 3, 4, 6, 8, 12)
     try:
         for order in (settings, settings[::-1]):
             for warps in order:
@@ -1109,51 +1199,179 @@ def phase_sweep_k3(torch, qpf):
                 ms = cuda_ms(torch, lambda: qpf._iterate_kernel(*args, **kw), reps=10)
                 iters = qpf._iterate_kernel(*args, **kw)[3]
                 ref = iters if ref is None else ref
-                blocks = qpf.SMEM_LIMIT_BYTES // (warps * per_warp + 1024)
                 phase("sweep-k3", warps_per_block=warps, block_smem_bytes=warps * per_warp,
-                      resident_warps_per_sm=blocks * warps, ms=f"{ms:.4f}",
-                      iters_equal=bool(torch.equal(iters, ref)))
+                      ms=f"{ms:.4f}", iters_equal=bool(torch.equal(iters, ref)))
     finally:
         qpf.WARPS_PER_BLOCK = default
-    # the latency chain of one instance: tolerances of 0 keep every lane
-    # iterating to the cap, so ms / iterations is the time of one iteration
-    # of one warp, alone on the card, one per SM, and at full residency
-    never = dict(kw, eps_abs=0.0, eps_rel=0.0)
+    # the latency chain of one instance alone on the card, one per SM, and
+    # at thirteen per SM
     for B in (1, 132, 132 * 13):
-        sub = tuple(a[:B].contiguous() for a in args)
-        t300 = cuda_ms(torch, lambda: qpf._iterate_kernel(*sub, **never), reps=5)
-        t25 = cuda_ms(torch, lambda: qpf._iterate_kernel(*sub, **dict(never, max_iter=25)),
-                      reps=5)
+        t300, t25, us = k3_latency_us(torch, qpf, args, kw, B)
         phase("latency-k3", B=B, ms_300_iters=f"{t300:.4f}", ms_25_iters=f"{t25:.4f}",
-              us_per_iteration=f"{1e3 * (t300 - t25) / 275:.3f}",
-              ms_setup_and_first_block=f"{t25:.4f}")
+              us_per_iteration=f"{us:.3f}", ms_setup_and_first_block=f"{t25:.4f}")
+
+
+def phase_k3_caps(torch, qpf):
+    """Float32 lanes that run to the 300-iteration cap, kernel and twin, on
+    the timing inputs (``vdp_qps(4096, 0)``) under 8 row permutations and
+    on seeds 1 and 2.  The rows of a QP permuted make the same QP summed in
+    another order, so the spread over permutations is what float32 rounding
+    alone moves; the kernel and its twin differ only in rounding too."""
+    kw = dict(K3_KW, refine=True)
+    counts = {"kernel": [], "twin": []}
+    for seed, k in [(0, k) for k in range(9)] + [(1, 0), (2, 0)]:
+        P, A, q, l, u, rho = vdp_qps(B_NL, seed)
+        if k:
+            p = np.random.default_rng(k).permutation(M_NL)
+            A, l, u, rho = A[:, p], l[:, p], u[:, p], rho[:, p]
+        args = k3_scaled_args(torch, qpf, [P, A, q, l, u, rho], torch.float32)
+        for name, fn in (("kernel", qpf._iterate_kernel), ("twin", qpf._iterate_plain)):
+            iters = fn(*args, **kw)[3]
+            counts[name].append(int((iters >= kw["max_iter"]).sum().item()))
+    phase("K3-caps", dtype="float32", B=B_NL, inputs="seed0+8perms,seed1,seed2",
+          **{f"{k}_caps": "/".join(map(str, v)) for k, v in counts.items()},
+          **{f"{k}_median": int(np.median(v)) for k, v in counts.items()})
+    return counts
+
+
+K3_SHARED_SHAPE = (N_NL, ME_NL, 138)  # n, me, mi: m = 184, the JAX gate's largest at n = 26
+
+
+def phase_k3_speed(torch, qpf, card):
+    """K3's time at Van der Pol's shape (B=4096, n=26, m=57) on the scaled
+    problem ``phase_times_nlmpc`` times, cold (CUDA events), float32 and
+    float64, beside its bound (with the refactorizations the twin makes on
+    the same inputs), its time before the redesign, the registers and
+    spills of each tier and type from ``-Xptxas -v``, the tier, the float32
+    iteration histogram, one instance's time per iteration alone and at one
+    instance per SM, and the float32 time at a shape of the shared-memory
+    tier (n=26, m=184: k3_qps data)."""
+    f32, f64 = torch.float32, torch.float64
+    tier = lambda n, m: k3_tier(qpf, n, m)
+    kw = dict(K3_KW, refine=True)
+    data = vdp_qps(B_NL, 0)
+    args = {dt: k3_scaled_args(torch, qpf, data, dt) for dt in (f32, f64)}
+    times = {dt: cuda_ms(torch, lambda: qpf._iterate_kernel(*a, **kw), reps=10)
+             for dt, a in args.items()}
+    iters = qpf._iterate_kernel(*args[f32], **kw)[3].cpu().numpy()
+    iters64 = qpf._iterate_kernel(*args[f64], **kw)[3].cpu().numpy()
+    refact = k3_refactorizations(torch, qpf, args[f32], kw)
+    bound, by = k3_bound_ms(iters, N_NL, M_NL, refact)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lat = {B: k3_latency_us(torch, qpf, args[f32], kw, B)[2] for B in (1, n_sm)}
+    n_s, me_s, mi_s = K3_SHARED_SHAPE
+    m_s = me_s + mi_s + n_s
+    sh_args = k3_scaled_args(torch, qpf, k3_qps(B_NL, 5, n_s, me_s, mi_s), f32)
+    sh_ms = cuda_ms(torch, lambda: qpf._iterate_kernel(*sh_args, **kw), reps=5)
+    sh_iters = qpf._iterate_kernel(*sh_args, **kw)[3].float().mean().item()
+    log = _build_mod().build_info.get("log", "")
+    fmt = lambda r: (f"{r.get('registers')}/{r.get('spill_stores')}/{r.get('spill_loads')}"
+                     if r else "not measured")
+    res = {t_: kernel_resources(log, k) for t_, k in (("register", "qp_inner_reg_kernel"),
+                                                      ("shared", "qp_inner_kernel"))}
+    phase("K3-speed", card=repr(card), shape=f"B={B_NL},n={N_NL},m={M_NL},cold",
+          tier=tier(N_NL, M_NL), ms_float32=f"{times[f32]:.4f}",
+          ms_float64=f"{times[f64]:.4f}", ms_before=K3_MS_BEFORE, bound_ms=f"{bound:.5f}",
+          bound_by=by, refactorizations_twin=refact,
+          refactorizations_per_lane=f"{refact / B_NL:.3f}",
+          iters_mean_float32=f"{iters.mean():.1f}", iters_float32=hist25(iters),
+          iters_mean_float64=f"{iters64.mean():.1f}", iters_float64=hist25(iters64),
+          us_per_iteration_alone=f"{lat[1]:.3f}",
+          **{f"us_per_iteration_B{n_sm}": f"{lat[n_sm]:.3f}"},
+          **{f"regs_spill_st_ld_{t_}_{d}": fmt(r.get(d))
+             for t_, r in res.items() for d in ("float32", "float64")},
+          shared_shape=f"B={B_NL},n={n_s},m={m_s},cold,float32", shared_tier=tier(n_s, m_s),
+          shared_ms_float32=f"{sh_ms:.4f}", shared_iters_mean=f"{sh_iters:.1f}",
+          smem_bytes_per_instance=f"{qpf.smem_bytes(N_NL, M_NL, f32)}/"
+                                  f"{qpf.smem_bytes(N_NL, M_NL, f64)}")
+    return {"float32": times[f32], "float64": times[f64], "tier": tier(N_NL, M_NL),
+            "refactorizations_twin": refact}
+
+
+def clocked_library(name, text, entry, rows, width):
+    """Build ``text``, an instrumented copy of ``csrc/<name>`` that adds
+    cycles into ``__device__ unsigned long long clocks[rows * width]``, into
+    a shared library of its own beside the kernel library, and load it.
+
+    The copy is a source file of another name (its anonymous namespace is
+    its own), its entry point ``entry`` is renamed ``clocked_<entry>``, and
+    it is linked with ``-Bsymbolic``, so that every call it makes, the CUDA
+    runtime's included, binds inside it and never to the kernel library
+    loaded in the same process.  Returns the entry point (with the kernel
+    library's argument types) and ``read()``, which returns the counters as
+    a (rows, width) array and zeroes them."""
+    import ctypes
+    b = _build_mod()
+    out = b.BUILD_DIR / "clocks"
+    out.mkdir(parents=True, exist_ok=True)
+    for h in b.HEADERS:
+        (out / h).write_text((b.CSRC / h).read_text())
+    require(entry in text, f"{name} defines {entry}")
+    src = out / f"{name[:-3]}_clocked.cu"
+    src.write_text(
+        f"__device__ unsigned long long clocks[{rows * width}];\n"
+        + text.replace(entry, f"clocked_{entry}")
+        + '\nextern "C" int clocks_read(unsigned long long* out) {\n'
+          "  cudaError_t e = cudaMemcpyFromSymbol(out, clocks, sizeof(clocks));\n"
+          f"  static unsigned long long zero[{rows * width}];\n"
+          "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(clocks, zero, sizeof(zero));\n"
+          "  return (int)e;\n}\n")
+    lib_path = src.with_suffix(".so")
+    subprocess.run([b.find_nvcc(), *b.NVCC_FLAGS, "-shared", "-Xlinker", "-Bsymbolic",
+                    "-o", str(lib_path), str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = getattr(lib, f"clocked_{entry}")
+    fn.argtypes = b._SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    lib.clocks_read.argtypes = [ctypes.c_void_p]
+    buf = np.zeros(rows * width, dtype=np.uint64)
+
+    def read():
+        require(lib.clocks_read(buf.ctypes.data) == 0, f"{name}: counters read")
+        return buf.reshape(rows, width).astype(np.float64)
+
+    return fn, read
+
+
+def print_clocks(tag, B, ms, cyc, sites, iters=None):
+    """One line for the mean cycles of an instance (``cyc``: instances x
+    sites, per call) and one per site: the cycles of the phase that ends
+    there, its share and (``iters``: mean iterations) per iteration.  Fails
+    unless every site counted cycles: each runs at least once an instance,
+    so a zero means the instrumented copy did not run."""
+    total = cyc.sum(axis=1).mean()
+    per_it = {} if iters is None else dict(iters_mean=f"{iters:.1f}",
+                                           cycles_per_iteration=f"{total / iters:.0f}")
+    phase(tag, B=B, ms=f"{ms:.4f}", cycles_per_instance=f"{total:.0f}", **per_it)
+    for sid, where in sites.items():
+        c = cyc[:, sid].mean()
+        phase(f"{tag}-site", B=B, site=sid, at=repr(where), cycles=f"{c:.0f}",
+              per_iteration="-" if iters is None else f"{c / iters:.1f}",
+              share=f"{c / total:.3f}" if total > 0 else "-")
+    require(total > 0 and all(cyc[:, sid].mean() > 0 for sid in sites),
+            f"{tag}: every site of the instrumented copy counted cycles at B={B}")
 
 
 def phase_k4_clocks(torch):
     """``--k4-clocks``: where one K4 block's time goes.  A copy of
     ``csrc/traj_factor.cu`` in which thread 0 of every block reads
     ``clock64()`` after each barrier and adds the cycles since the last one
-    to that barrier's counter is built beside the kernel library and run at
-    the oscillators' shape, float32, 128 threads, with the full batch and
-    with one instance per SM.  Each line is one barrier (its line in
+    to that barrier's counter (``clocked_library``) runs at the
+    oscillators' shape, float32, 128 threads, with the full batch and with
+    one instance per SM.  Each line is one barrier (its line in
     ``traj_factor.cu``; ``chol`` is a whole call of the Cholesky routine):
     the cycles of the phase that ends there, summed over the stages, mean
     over blocks, and its share.  Diagnostic only: the main path runs the
     kernel without counters."""
-    import ctypes
     import re
     b = _build_mod()
     src = (b.CSRC / "traj_factor.cu").read_text()
-    head = ("__device__ unsigned long long k4_clocks[4096 * 64];\n"
-            "#define K4_CLOCK(id) do { if (threadIdx.x == 0) { unsigned long long t_ = "
-            "clock64(); k4_clocks[blockIdx.x * 64 + (id)] += t_ - t_last; t_last = t_; } "
-            "} while (0)\n")
     k0, k1 = src.index("traj_factor_kernel(const T*"), src.index("template <typename T>\nint launch")
     body, sites = src[k0:k1], {}
     first_line = src[:k0].count("\n") + 1
 
     def mark(m):
-        sid = len(sites) + 1
+        sid = len(sites)
         line = first_line + body[:m.start()].count("\n")
         sites[sid] = f"line {line}" + (" (chol)" if "block_chol" in m.group(0) else "")
         return f"{m.group(0)} K4_CLOCK({sid});"
@@ -1161,28 +1379,14 @@ def phase_k4_clocks(torch):
     body = re.sub(r"__syncthreads\(\);|libmpc::block_chol_lower_inverse\([^;]*\);", mark, body)
     body = body.replace("T* sm = reinterpret_cast<T*>(smem_raw);",
                         "T* sm = reinterpret_cast<T*>(smem_raw);\n  unsigned long long t_last = clock64();")
-    out = b.BUILD_DIR / "k4_clocks"
-    out.mkdir(parents=True, exist_ok=True)
-    for h in b.HEADERS:
-        (out / h).write_text((b.CSRC / h).read_text())
-    (out / "traj_factor.cu").write_text(
-        src[:k0].replace("namespace {\n", head + "namespace {\n", 1) + body + src[k1:]
-        + '\nextern "C" int k4_clocks_read(unsigned long long* out) {\n'
-          "  cudaError_t e = cudaMemcpyFromSymbol(out, k4_clocks, sizeof(k4_clocks));\n"
-          "  static unsigned long long zero[4096 * 64];\n"
-          "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k4_clocks, zero, sizeof(zero));\n"
-          "  return (int)e;\n}\n")
-    lib_path = out / "libk4clocks.so"
-    subprocess.run([b.find_nvcc(), *b.NVCC_FLAGS, "-shared", "-o", str(lib_path),
-                    str(out / "traj_factor.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.libmpc_traj_factor_f32
-    fn.argtypes = b._SIGNATURES["libmpc_traj_factor_f32"]
-    lib.k4_clocks_read.argtypes = [ctypes.c_void_p]
+    head = ("#define K4_CLOCK(id) do { if (threadIdx.x == 0) { unsigned long long t_ = "
+            "clock64(); clocks[blockIdx.x * 64 + (id)] += t_ - t_last; t_last = t_; } "
+            "} while (0)\n")
+    fn, read = clocked_library("traj_factor.cu", head + src[:k0] + body + src[k1:],
+                               "libmpc_traj_factor_f32", 4096, 64)
     data = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
             for a in traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    buf = np.zeros(4096 * 64, dtype=np.uint64)
     for B in (B_OSC, n_sm):
         D, L, C, G = (a[:B].contiguous() for a in data)
         S, X, Gh = torch.empty_like(D), torch.empty_like(C), torch.empty_like(G)
@@ -1195,18 +1399,71 @@ def phase_k4_clocks(torch):
 
         call()
         torch.cuda.synchronize()
-        require(lib.k4_clocks_read(buf.ctypes.data) == 0, "K4 clocks read")
+        read()
         reps = 10
         ms = cuda_ms(torch, call, reps=reps, warmup=0)
-        require(lib.k4_clocks_read(buf.ctypes.data) == 0, "K4 clocks read")
-        cyc = buf.reshape(4096, 64)[:B].astype(np.float64) / reps
-        total = cyc.sum(axis=1).mean()
-        phase("k4-clocks", B=B, ms=f"{ms:.4f}", cycles_per_block=f"{total:.0f}",
-              ghz=f"{total / ms / 1e6:.3f}")
-        for sid, where in sites.items():
-            c = cyc[:, sid].mean()
-            phase("k4-clocks-site", B=B, site=sid, at=repr(where), cycles=f"{c:.0f}",
-                  share=f"{c / total:.3f}")
+        print_clocks("k4-clocks", B, ms, read()[:B] / reps, sites)
+
+
+def phase_k3_clocks(torch, qpf):
+    """``--k3-clocks``: where one K3 instance's time goes on the register
+    tier.  ``csrc/qp_inner.cu`` marks the end of each phase of the register
+    tier's kernel with ``K3_CLOCK(site);  // what the phase does`` (nothing
+    in the kernel library);
+    the copy built here (``clocked_library``) defines it so that every lane
+    reads ``clock()`` there and adds the cycles since the last site to that
+    site's counter (registers, no branch; lane 0 writes them out at the
+    end).  It runs at the path's shape, float32, cold, on the full batch,
+    with one instance per SM and with one instance alone.  Each line is one
+    site (its line in ``qp_inner.cu`` and its comment): the cycles
+    of the phase that ends there, summed over the solve, mean over
+    instances, per iteration, and its share.  Diagnostic only: the main path
+    runs the kernel without counters."""
+    import re
+    src = (_build_mod().CSRC / "qp_inner.cu").read_text()
+    lines, sites = src.splitlines(), {}
+    for i, text in enumerate(lines):
+        m = re.search(r"\bK3_CLOCK\((\d+)\);\s*//\s*(.*)", text)
+        if m:
+            sites[int(m.group(1))] = f"line {i + 1}: {m.group(2).strip()}"
+    n_sites = len(sites)
+    require(sorted(sites) == list(range(n_sites)) and n_sites <= 16,
+            "qp_inner.cu numbers its K3_CLOCK sites 0, 1, ... (at most 16)")
+    head = ("#define K3_CLOCK_START unsigned k3c_[16] = {}; unsigned k3t_ = (unsigned)clock();\n"
+            "#define K3_CLOCK(site) do { const unsigned t_ = (unsigned)clock(); "
+            "k3c_[site] += t_ - k3t_; k3t_ = t_; } while (0)\n"
+            "#define K3_CLOCK_FLUSH(inst) if (lane == 0) { _Pragma(\"unroll\") "
+            "for (int i_ = 0; i_ < 16; ++i_) clocks[(inst) * 16 + i_] += k3c_[i_]; }\n")
+    fn, read = clocked_library("qp_inner.cu", head + src, "libmpc_qp_inner_f32", 4096, 16)
+    f32 = torch.float32
+    args = k3_scaled_args(torch, qpf, vdp_qps(B_NL, 0), f32)
+    kw = dict(K3_KW, refine=True)
+    n_blocks = (kw["max_iter"] + kw["check_every"] - 1) // kw["check_every"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B in (B_NL, n_sm, 1):
+        sub = [a[:B].contiguous() for a in args]
+        n, m = N_NL, M_NL
+        outs = [torch.empty((B, n), dtype=f32, device="cuda"),
+                torch.empty((B, m), dtype=f32, device="cuda"),
+                torch.empty((B, m), dtype=f32, device="cuda"),
+                torch.empty((B,), dtype=torch.int32, device="cuda"),
+                torch.empty((B,), dtype=torch.int32, device="cuda"),
+                torch.empty((B,), dtype=f32, device="cuda"),
+                torch.empty((B,), dtype=f32, device="cuda")]
+
+        def call():
+            code = fn(*(a.data_ptr() for a in sub), *(o.data_ptr() for o in outs), B, n, m,
+                      kw["sigma"], kw["alpha"], kw["eps_abs"], kw["eps_rel"], n_blocks,
+                      kw["check_every"], 1, 1, torch.cuda.current_stream().cuda_stream)
+            require(code == 0, f"instrumented K3 launched ({code})")
+
+        call()
+        torch.cuda.synchronize()
+        read()
+        reps = 5
+        ms = cuda_ms(torch, call, reps=reps, warmup=0)
+        iters = outs[3].double().mean().item()
+        print_clocks("k3-clocks", B, ms, read()[:B, :n_sites] / reps, sites, iters)
 
 
 # -- the networked oscillators of examples/networked_oscillators_ex.cpp --------
@@ -1906,9 +2163,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + " ".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of the NLMPC loop")
+                    help="add a torch.profiler breakdown of the NLMPC loops that run")
     ap.add_argument("--sweep-k3", action="store_true",
                     help="time K3 for several warps per block")
+    ap.add_argument("--k3-clocks", action="store_true",
+                    help="cycles of each phase of K3's register tier (an instrumented copy)")
     ap.add_argument("--k4-clocks", action="store_true",
                     help="cycles of each barrier phase of K4 (an instrumented copy)")
     opts = ap.parse_args(argv)
@@ -1942,6 +2201,8 @@ def main(argv=None) -> int:
         k2b_err = phase_k2_blocked(torch, batched_linalg)
     if "k3" in want:
         k3_err = phase_k3(torch, qpf)
+        k3_speed = phase_k3_speed(torch, qpf, card)
+        phase_k3_caps(torch, qpf)
     if "k4" in want:
         k4_err = phase_k4(torch, ts, lt, tk)
         phase_k4_speed(torch, ts, card)
@@ -1959,12 +2220,15 @@ def main(argv=None) -> int:
     if "osc" in want:
         launches_osc, wall_osc = phase_main_osc(torch, lt, tk, sqp, qpf, host, mods)
         osc_err = phase_matched_osc(torch, lt, sqp)
-    if opts.profile:
+    if opts.profile and "nlmpc" in want:
         phase_profile_nlmpc(torch, lt, host)
+    if opts.profile and "osc" in want:
         phase_profile_osc(torch, lt, host)
         phase_profile_osc_rollout(torch, lt, tk, host, mods)
     if opts.sweep_k3:
         phase_sweep_k3(torch, qpf)
+    if opts.k3_clocks:
+        phase_k3_clocks(torch, qpf)
     if opts.k4_clocks:
         phase_k4_clocks(torch)
     if "times" in want:
@@ -2008,7 +2272,9 @@ def main(argv=None) -> int:
                            max_abs_err=k2b_err["float32"])),
         entry("qp_inner", "libmpc_tpu_torch/csrc/qp_inner.cu",
               "libmpc_tpu/ops/qp_inner_pallas.py:362", k3_err["float32"],
-              shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32"),
+              shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32", tier=k3_speed["tier"],
+              ms_float64=k3_speed["float64"],
+              refactorizations_twin=k3_speed["refactorizations_twin"]),
         entry("traj_factor", "libmpc_tpu_torch/csrc/traj_factor.cu",
               "libmpc_tpu/ops/trajectory_sweeps.py:201", k4_err["float32"], shape=osc_shape),
         entry("traj_sweep", "libmpc_tpu_torch/csrc/traj_sweep.cu",

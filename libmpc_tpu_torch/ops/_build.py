@@ -60,6 +60,8 @@ _SIGNATURES = {
     # stream
     "libmpc_qp_inner_f32": [_P] * 18 + [_I] * 3 + [_D] * 4 + [_I] * 4 + [_P],
     "libmpc_qp_inner_f64": [_P] * 18 + [_I] * 3 + [_D] * 4 + [_I] * 4 + [_P],
+    # n m elem_bytes | bytes (out): returns the tier (1 register, 0 shared)
+    "libmpc_qp_inner_layout": [_I, _I, _I, _P],
     # D L C G | Sinv X Ghat | B ph bs bs_p w threads | stream
     "libmpc_traj_factor_f32": [_P] * 7 + [_I] * 6 + [_P],
     "libmpc_traj_factor_f64": [_P] * 7 + [_I] * 6 + [_P],

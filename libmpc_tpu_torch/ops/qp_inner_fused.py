@@ -5,7 +5,7 @@ Counterpart of ``libmpc_tpu/ops/qp_inner_pallas.py``.  The SQP inner QP
 (``ops/sqp.py``) is a *per-instance* problem: every batch element has its own
 Hessian ``P`` (n, n) and constraint matrix ``A`` (m, n), tens of rows and
 columns.  :func:`solve_batched` runs the ENTIRE solve of every instance — KKT
-assembly ``M = P + sigma I + A' diag(rho) A``, Cholesky factorization,
+assembly ``M = P + sigma I + A' diag(rho) A``, its factorization and
 explicit inverse, the ADMM iteration loop with a convergence check on the
 unscaled residuals every ``check_every`` iterations, the per-instance freeze
 and the per-instance adaptive rho with refactorization:
@@ -30,23 +30,36 @@ instance is about 14 KB of matrices and 1e4 floating-point operations per
 iteration; at the SQP's batch the card's memory rate and arithmetic rate
 would both be done in tens of microseconds.  The work is ``check_every``
 iterations of five small matrix-vector products each, one after the other,
-per check block, and every multiply-add of them reads two operands from
-shared memory.  So the kernel gives each instance one warp that keeps A, M,
-the factor workspace, M^-1 and every vector in shared memory for the whole
-solve (only P stays in global memory: it is read at each (re)factorization
-and once per check), lanes work on the rows or columns of each product
-without bank conflicts (odd leading dimension), and a dozen warps are
-resident per SM.  Measured (``chip_smoke.py --sweep-k3``): one instance alone
-takes 2.8 us per iteration, thirteen per SM 5.0 us each — about 675 cycles
-per iteration per SM against the 374 shared-memory loads an iteration
-issues, so at full residency the kernel is bound by shared-memory load
-throughput, not by the latency of one instance's chain.  A warp leaves the
-loop when ITS instance converges and refactorizes only when ITS rho moves;
-the TPU kernel's 128-lane tile (which runs until all 128 are done and
-refactorizes all of them together) and its edge-replicated padding have no
-counterpart — a ragged batch is a bounds check.  :func:`supported` is the
-kernel's own gate: the shared memory of one warp's instance must fit the
-227 KB a block can use.
+per check block: what costs is how each multiply-add gets its operands and
+how long one product's dependent chain is.  One warp owns one instance,
+leaves the loop when ITS instance converges and refactorizes only when ITS
+rho moves; the TPU kernel's 128-lane tile (which runs until all 128 are
+done and refactorizes all of them together) and its edge-replicated padding
+have no counterpart — a ragged batch is a bounds check.  The kernel has two
+layouts of the same algorithm, chosen by shape at launch (:func:`tier`):
+
+* ``"register"`` (n <= 32, m <= 64; Van der Pol's subproblem is n = 26,
+  m = 57): A and M^-1 live in registers as 2-D tiles (16 x 4 of A and 4 x 8
+  of M^-1 per lane; M, used once an iteration, as the same tile read from
+  shared memory); a product reads its vector from shared memory once per
+  lane, does 32-64 independent multiply-adds and sums the lanes' partials
+  by a butterfly of 3-14 shuffles, so an iteration issues 26 shared-memory
+  loads where the other tier issues 374, and a product's chain is a few
+  multiply-adds and shuffle steps, not 26-57 dependent multiply-adds.  M is
+  inverted by Gauss-Jordan elimination with one row per lane.  The
+  refinement residual ``rhs - M x`` is summed error-free (Dot2): a plain
+  float32 sum is mostly the rounding of ``M x``, and the refinement then
+  left a sixth of the Van der Pol lanes at the iteration cap.
+* ``"shared"`` (every other shape :func:`supported` admits, up to n = 56 or
+  m ~ 860): A, M, the factor workspace, M^-1 and every vector stay in shared
+  memory with an odd leading dimension, and every multiply-add reads two
+  operands from there; measured (``chip_smoke.py --sweep-k3`` when this
+  layout served every shape) 675 cycles per iteration per SM at full
+  residency, bound by shared-memory load throughput.
+
+:func:`supported` is the kernel's own gate: the shared memory of one warp's
+instance, in its tier's layout (:func:`smem_bytes`), must fit the 227 KB a
+block can use; past it a request raises.
 """
 
 from __future__ import annotations
@@ -59,26 +72,48 @@ from .admm import _ruiz_equilibration
 INF_BOUND = 1e18
 SMEM_LIMIT_BYTES = 232448  # dynamic shared memory one Hopper block can use
 # warps (= instances) per block.  Instances finish at different times, so
-# the smallest block schedules best: 1 warp per block measured 2.54 ms
-# against 2.80 (3 warps) and 3.45 (12) at B=4096 on an H100
-# (``chip_smoke.py --sweep-k3``)
+# the smallest block schedules best: 1 warp per block measured 0.757-0.769
+# ms against 0.789-0.807 (2 warps) and 0.836-0.857 (4, the register tier's
+# most) at B=4096 on an H100 (``chip_smoke.py --sweep-k3``)
 WARPS_PER_BLOCK = 1
+# the register tier's capacities: one column of x-like vectors per lane, two
+# constraint rows per lane; past either the shared-memory tier runs.  This
+# and :func:`smem_bytes` restate the launcher's layout
+# (``csrc/qp_inner.cu::libmpc_qp_inner_layout``) for the gate, which also
+# answers on the CPU, where no library is built; a card test holds the two
+# equal at every shape up to n = 64, m = 900
+REG_MAX_N, REG_MAX_M = 32, 64
+
+
+def tier(n: int, m: int) -> str:
+    """The kernel's layout for an (n, m) subproblem: ``"register"`` or
+    ``"shared"`` (a function of the shape alone, never of a failure)."""
+    return "register" if n <= REG_MAX_N and m <= REG_MAX_M else "shared"
 
 
 def smem_bytes(n: int, m: int, dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one warp (= one instance) in the kernel: A (m, ld),
-    M, the factor workspace and M^-1 (n, ld each) with the odd leading
-    dimension ``ld = n | 1``, 6 vectors of n (x, q, rhs, xt, the refinement
-    residual, dinv) and 7 of m (z, y, rho, l, u, rho z - y, einv)."""
-    ld = n | 1
-    words = m * ld + 3 * n * ld + 6 * n + 7 * m
+    """Shared memory of one warp (= one instance) in the kernel, by tier.
+
+    Register tier: A (m x 32, zero past n), M and the elimination's
+    workspace (32 x 36 each), a two-row pivot buffer (2 x 32), four x-like
+    vectors (rhs, x tilde, the refinement residual, the refined x tilde; 32
+    each), the row vector rho z - y (64 rows and an 8-word skew), rho and
+    einv (64 each).  Shared tier: A (m, ld), M, the factor workspace and
+    M^-1 (n, ld each) with the odd leading dimension ``ld = n | 1``, 6
+    vectors of n (x, q, rhs, xt, the refinement residual, dinv) and 7 of m
+    (z, y, rho, l, u, rho z - y, einv)."""
+    if tier(n, m) == "register":
+        words = 32 * m + 2 * 32 * 36 + 2 * 32 + 4 * 32 + (64 + 8) + 2 * 64
+    else:
+        ld = n | 1
+        words = m * ld + 3 * n * ld + 6 * n + 7 * m
     return words * torch.finfo(dtype).bits // 8
 
 
 def supported(n: int, m: int, dtype: torch.dtype = torch.float32) -> bool:
     """Whether the CUDA kernel takes an (n, m) subproblem: one instance must
-    fit a block's shared memory.  A request past the gate raises; it is not
-    handed to another engine."""
+    fit a block's shared memory in its tier's layout.  A request past the
+    gate raises; it is not handed to another engine."""
     return n >= 1 and m >= 1 and smem_bytes(n, m, dtype) <= SMEM_LIMIT_BYTES
 
 
@@ -193,8 +228,8 @@ def _iterate_kernel(P, A, q, l, u, rho, x, y, dinv, einv, cinv, *, sigma, alpha,
     if not supported(n, m, dtype):
         raise ValueError(
             f"fused inner-QP kernel: n={n}, m={m} needs {smem_bytes(n, m, dtype)} "
-            f"bytes of shared memory per instance, over the {SMEM_LIMIT_BYTES} "
-            "a block can use"
+            f"bytes of shared memory per instance ({tier(n, m)} tier), over the "
+            f"{SMEM_LIMIT_BYTES} a block can use"
         )
     expect = {"P": (P, (B, n, n)), "A": (A, (B, m, n)), "q": (q, (B, n)),
               "l": (l, (B, m)), "u": (u, (B, m)), "rho": (rho, (B, m)),

@@ -92,26 +92,14 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         batched_linalg.chol_inverse(torch.eye(4, dtype=torch.float16, device=cuda)[None])
 
 
-def _k3_data(B, dtype, device, seed=0, n=26, me=20, mi=11):
-    """Feasible QPs of the SQP's shape: equality rows, one-sided rows with
-    -inf, identity box rows of which some are infinite; a mild equality
-    penalty so that float32 rounding is not amplified."""
-    rng = np.random.default_rng(seed)
-    m = me + mi + n
-    Q = rng.normal(size=(B, n, n))
-    P = Q @ Q.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
-    Aei = rng.normal(size=(B, me + mi, n)) / np.sqrt(n)
-    A = np.concatenate([Aei, np.broadcast_to(np.eye(n), (B, n, n))], axis=1)
-    v = np.einsum("brn,bn->br", Aei, rng.uniform(-0.4, 0.4, size=(B, n)))
-    lo, hi = np.full((B, n), -0.5), np.full((B, n), 0.5)
-    lo[:, ::3], hi[:, 1::3] = -1e20, 1e20
-    l = np.concatenate([v[:, :me], np.full((B, mi), -np.inf), lo], axis=1)
-    u = np.concatenate([v[:, :me], v[:, me:] + 0.2 * np.abs(rng.normal(size=(B, mi))), hi],
-                       axis=1)
-    loose = (l <= -1e18) & (u >= 1e18)
-    rho = np.where(loose, 1e-6, np.where(np.arange(m) < me, 1.0, 0.1))
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    return [t(P), t(A), t(0.2 * rng.normal(size=(B, n))), t(l), t(u), t(rho)]
+def _k3_data(B, dtype, device, seed=0, n=26, me=20, mi=11, box=True):
+    """Feasible QPs of the SQP's form: equality rows, one-sided rows with
+    -inf, (``box``) identity box rows of which some are infinite; a mild
+    equality penalty so that float32 rounding is not amplified.  The
+    generator of ``chip_smoke.k3_qps`` (one copy serves the smoke run and
+    these tests)."""
+    return [torch.as_tensor(a, dtype=dtype, device=device)
+            for a in chip_smoke.k3_qps(B, seed, n, me, mi, box)]
 
 
 _K3_KW = dict(sigma=1e-5, alpha=1.6, max_iter=300, check_every=25)
@@ -169,6 +157,76 @@ def test_qp_inner_warm_start_at_the_optimum_is_frozen_after_one_block(cuda):
     assert (x2 - x).abs().max().item() <= 1e-6
 
 
+# (B, n, me, mi, box, tier): both sides of the register tier's bound (n <= 32,
+# m <= 64), two shapes on the JAX package's fused gate's frontier (the
+# largest m at n = 12; the largest n, with m = 1) and a ragged batch
+_K3_TIER_CASES = [(64, 32, 20, 12, True, "register"), (64, 32, 20, 13, True, "shared"),
+                  (64, 33, 20, 11, True, "shared"), (37, 12, 6, 361, True, "shared"),
+                  (64, 56, 0, 1, False, "shared"), (1003, 26, 20, 11, True, "register"),
+                  (1, 26, 20, 11, True, "register")]
+
+
+def _twin_spread(data, x0, y0, kw):
+    """How far two correct evaluations of the same QPs part: the twin
+    against the twin on the constraint rows in another order (the same
+    problem, other rounding), as a fraction of scale for x, y and z."""
+    P, A, q, l, u, rho = data
+    m = A.shape[1]
+    perm = torch.as_tensor(np.random.default_rng(0).permutation(m), device=A.device)
+    inv = torch.argsort(perm)
+    a = qp_inner_fused.plain_solve_batched(*data, x0, y0, **kw)
+    b = qp_inner_fused.plain_solve_batched(P, A[:, perm], q, l[:, perm], u[:, perm],
+                                           rho[:, perm], x0, y0[:, perm], **kw)
+    return [(g - w).abs().max().item() / max(1.0, w.abs().max().item())
+            for g, w in zip((b[0], b[1][:, inv], b[2][:, inv]), a[:3])]
+
+
+@pytest.mark.parametrize("B,n,me,mi,box,tier", _K3_TIER_CASES)
+def test_qp_inner_tiers_match_twin_float64(cuda, B, n, me, mi, box, tier):
+    """Each tier against the twin in float64 at tight tolerances: ``done``
+    and the iteration count equal on every lane, x/y/z within 1e-10 of
+    scale, or within 3x the twin's own spread where the shape's
+    conditioning parts two correct evaluations further (m = 379 rows on
+    n = 12: 2e-10 in x, 2e-8 in y)."""
+    data = _k3_data(B, torch.float64, cuda, seed=n + mi, n=n, me=me, mi=mi, box=box)
+    m = data[1].shape[1]
+    assert qp_inner_fused.tier(n, m) == tier and qp_inner_fused.supported(n, m, torch.float64)
+    x0 = torch.zeros((B, n), dtype=torch.float64, device=cuda)
+    y0 = torch.zeros((B, m), dtype=torch.float64, device=cuda)
+    kw = dict(_K3_KW, eps_abs=1e-9, eps_rel=1e-9, max_iter=2000)
+    launches = qp_inner_fused.solve_batched.launches
+    got = qp_inner_fused.solve_batched(*data, x0, y0, **kw)
+    want = qp_inner_fused.plain_solve_batched(*data, x0, y0, **kw)
+    torch.cuda.synchronize()
+    assert qp_inner_fused.solve_batched.launches == launches + 1
+    assert torch.equal(got[4], want[4]) and torch.equal(got[3], want[3])
+    spread = _twin_spread(data, x0, y0, kw)
+    for g, w, sp in zip(got[:3], want[:3], spread):
+        assert (g - w).abs().max().item() <= max(1e-10, 3 * sp) * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.parametrize("B,n,me,mi,box,tier", _K3_TIER_CASES)
+def test_qp_inner_tiers_match_twin_float32(cuda, B, n, me, mi, box, tier):
+    """Each tier in float32 at the path's tolerance (5e-6), held as
+    ``test_qp_inner_kernel_matches_twin_float32`` holds the path's shape:
+    x and z within 1e-3 of scale, or 3x the twin's own spread where that is
+    larger (m = 379 on n = 12: 1.7e-3), and ``done`` equal on 3 lanes in 4."""
+    data = _k3_data(B, torch.float32, cuda, seed=n + mi + 1, n=n, me=me, mi=mi, box=box)
+    m = data[1].shape[1]
+    assert qp_inner_fused.tier(n, m) == tier
+    x0 = torch.zeros((B, n), device=cuda)
+    y0 = torch.zeros((B, m), device=cuda)
+    kw = dict(_K3_KW, eps_abs=5e-6, eps_rel=5e-6)
+    got = qp_inner_fused.solve_batched(*data, x0, y0, **kw)
+    want = qp_inner_fused.plain_solve_batched(*data, x0, y0, **kw)
+    torch.cuda.synchronize()
+    spread = _twin_spread(data, x0, y0, kw)
+    for k in (0, 2):
+        tol = max(1e-3, 3 * spread[k]) * max(1.0, want[k].abs().max().item())
+        assert (got[k] - want[k]).abs().max().item() <= tol
+    assert (got[4] == want[4]).float().mean().item() >= 0.75
+
+
 def test_qp_inner_refuses_a_size_past_its_gate(cuda):
     n, m = 301, 842
     assert not qp_inner_fused.supported(n, m)
@@ -180,6 +238,25 @@ def test_qp_inner_refuses_a_size_past_its_gate(cuda):
     with pytest.raises(TypeError):
         qp_inner_fused.solve_batched(*(t.half() for t in _k3_data(2, torch.float32, cuda)),
                                      z(2, 26).half(), z(2, 57).half())
+
+
+def test_qp_inner_gate_states_the_kernels_layout(cuda):
+    """``qp_inner_fused.tier`` and ``smem_bytes`` restate the launcher's
+    layout (the gate must answer on the CPU too, where no library is
+    built): equal to the library's own at every n <= 64, m <= 900, both
+    sides of the register tier's bound among them."""
+    import ctypes
+
+    from libmpc_tpu_torch.ops import _build
+
+    lib, out = _build.library(), ctypes.c_longlong()
+    for dtype in (torch.float32, torch.float64):
+        size = torch.finfo(dtype).bits // 8
+        for n in range(1, 65):
+            for m in range(1, 901):
+                reg = lib.libmpc_qp_inner_layout(n, m, size, ctypes.byref(out))
+                assert (reg == 1) == (qp_inner_fused.tier(n, m) == "register"), (n, m)
+                assert out.value == qp_inner_fused.smem_bytes(n, m, dtype), (n, m, dtype)
 
 
 def test_batched_spd_routes_refuse_k_past_the_kernel_gate(cuda):

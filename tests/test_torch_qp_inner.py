@@ -2,6 +2,9 @@
 against the JAX package's Pallas kernel run in interpret mode, on the same
 QPs made with numpy from a seed."""
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,7 +150,71 @@ def test_batched_ruiz_equals_per_instance():
 
 
 def test_shared_memory_gate():
+    """Each tier's own layout: the register tier's (32 m + 2696) words, the
+    shared tier's (m ld + 3 n ld + 6 n + 7 m) with ld = n | 1."""
     assert tqip.supported(26, 57)
     assert tqip.supported(26, 57, torch.float64)
-    assert tqip.smem_bytes(26, 57) == 4 * (57 * 27 + 3 * 26 * 27 + 6 * 26 + 7 * 57)
+    assert tqip.smem_bytes(26, 57) == 4 * (32 * 57 + 2696)
+    assert tqip.smem_bytes(26, 57, torch.float64) == 8 * (32 * 57 + 2696)
+    assert tqip.smem_bytes(26, 184) == 4 * (184 * 27 + 3 * 26 * 27 + 6 * 26 + 7 * 184)
     assert not tqip.supported(301, 842)
+
+
+@pytest.mark.parametrize("n,m,tier", [(1, 1, "register"), (26, 57, "register"),
+                                      (32, 64, "register"), (33, 64, "shared"),
+                                      (32, 65, "shared"), (26, 184, "shared"),
+                                      (56, 1, "shared")])
+def test_kernel_tier_is_a_function_of_the_shape(n, m, tier):
+    assert tqip.tier(n, m) == tier
+
+
+@pytest.mark.parametrize("n", range(1, 57))
+def test_kernel_gate_admits_the_jax_fused_gate(n):
+    """Every (n, m) the JAX package's fused gate admits, float32, is one the
+    CUDA kernel takes (in one of its tiers): m from 1 to the largest the
+    gate admits at this n.  The gate admits n up to 56."""
+    m_max = 0
+    while jqip.supported(n, m_max + 1):
+        m_max += 1
+    assert m_max >= 1
+    for m in range(1, m_max + 1):
+        assert tqip.supported(n, m, torch.float32), (n, m, tqip.tier(n, m))
+
+
+def test_jax_fused_gate_stops_at_n_56():
+    assert jqip.supported(56, 1) and not jqip.supported(56, 2)
+    assert not jqip.supported(57, 1)
+
+
+def test_refactorization_count_watches_the_twin_without_changing_it():
+    """``chip_smoke.k3_refactorizations`` counts the lanes whose rho moved
+    at each refactorization of the twin before its last check block: none
+    with one block (the twin's refactorization after it is not the
+    kernel's), and over several at least one and at most one per lane and
+    block that the lane was still running after; the twin's result is the
+    same with and without the count, and the library call is restored."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    B, n, me, mi = 6, 11, 4, 3
+    P, A, q, l, u, rho = (torch.as_tensor(a) for a in sqp_like_qps(B, n, me, mi, seed=6))
+    m = me + mi + n
+    Ps, As, qs, ls, us, xs, ys, d, e, c = tqip._scale_problem(
+        P, A, q, l, u, torch.zeros((B, n)), torch.zeros((B, m)), 10)
+    args = (Ps, As, qs, ls, us, rho, xs, ys, 1 / d, 1 / e, 1 / c)
+    kw = dict(KW, refine=True)
+    real = torch.linalg.cholesky_ex
+    assert chip_smoke.k3_refactorizations(torch, tqip, args, dict(kw, max_iter=25)) == 0
+    moves = chip_smoke.k3_refactorizations(torch, tqip, args, kw)
+    assert torch.linalg.cholesky_ex is real
+    running = sum(int((~tqip._iterate_plain(*args, **dict(kw, max_iter=25 * k))[4]).sum())
+                  for k in range(1, KW["max_iter"] // KW["check_every"]))
+    assert 1 <= moves <= running
+    plain = tqip._iterate_plain(*args, **kw)
+    torch.linalg.cholesky_ex = lambda M, *a, **k: real(M, *a, **k)
+    try:
+        watched = tqip._iterate_plain(*args, **kw)
+    finally:
+        torch.linalg.cholesky_ex = real
+    for a, b in zip(plain, watched):
+        assert torch.equal(a, b)
