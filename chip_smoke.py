@@ -21,7 +21,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
 
 1. environment: card, power limit, CUDA, nvcc, triton; TF32 off
 2. build of the kernel library by nvcc for sm_90a
-3. K1 (fused ADMM iterations) against its twin, float32 and float64
+3. K1 (fused ADMM iterations) against its twin, float32 and float64, at
+   B=16384, the compacted 1024, a ragged 1003 and B=1, and at every staged
+   tile forced; a ``K1-speed`` line
 4. K2 (batched Cholesky inverse) against its twin, float32 and float64, at
    the LMPC polish's shape, at the Van der Pol path's shapes and at the
    oscillators' border shape (1024,8,8); its blocked recursion at
@@ -36,7 +38,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
    inputs whose base pointers are not 16-byte aligned; K4, K2 and K5
    together against a dense solve; a ``K4-speed`` and a ``K5-speed`` line
 7. LMPC main path, float32: the closed loop through K1 and K2, launch
-   counts, status mix, success fraction; the unbatched float32 golden
+   counts (K1's by batch size and tile: ``K1-launches``), status mix,
+   success fraction; the unbatched float32 golden
 8. LMPC matched-state accuracy against the float64 closed-loop oracle
 9. LMPC float64 20-step golden trajectory on the card
 10. NLMPC main path, float32: the closed loop through K3 and K2, launch
@@ -53,15 +56,21 @@ Phases, one line each (any failure raises and the script exits non-zero):
     bound, steady-state and closed-loop solves/s of the three paths
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-times; ``--phases k3`` is K3's one-minute check: its twin comparisons and a
+times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
+``K1-speed`` line with its time at the main path's batches in both types,
+each tier forced, the bound, the layout, the L2 bytes a launch and their
+rate, registers and spills (``--sweep-k1`` adds a ``K1-sweep`` line: the
+probe's L2 read rate, tiers at more batches, tiles and ring depths);
+``--phases k3`` is K3's one-minute check: its twin comparisons and a
 ``K3-speed`` line with its float32 and float64 time, bound, registers,
 spills, tier, iteration histogram and one instance's time per iteration;
 ``--phases k4`` is K4's, with a ``K4-speed`` line; ``--phases k5`` is
 K5's, with a ``K5-speed`` line),
-``--profile`` adds a ``torch.profiler`` breakdown of the NLMPC loops whose
-phases run (``nlmpc``: Van der Pol; ``osc``: the oscillators, and the
-oscillator rollout's idle share from one traced window),
-``--sweep-k3`` times K3 for several warps per block, ``--k3-clocks`` counts
+``--profile`` adds a ``torch.profiler`` breakdown of the loops whose
+phases run (``lmpc``: the quadrotor; ``nlmpc``: Van der Pol; ``osc``: the
+oscillators, and the oscillator rollout's idle share from one traced
+window), ``--k1-clocks`` counts the cycles of each phase of a staged K1
+block, ``--sweep-k3`` times K3 for several warps per block, ``--k3-clocks`` counts
 the cycles of each phase of K3's register tier and ``--k4-clocks`` those of
 each barrier phase of K4; with no arguments every
 phase runs.  The second-to-last line is one JSON object
@@ -237,10 +246,11 @@ def k1_problem(B, n, m, seed=0):
     return dict(q=q, l=l, u=u, A=A, M=M, Minv=Minv, rho=rho, sigma=sigma)
 
 
-def k1_case(torch, admm_fused, data, dtype, refine, frozen_lane=3):
-    """Kernel and twin from the same nonzero state with one frozen lane.
-    Returns (worst error relative to the twin's inf-norm, max abs error,
-    frozen lane bitwise untouched)."""
+def k1_case(torch, admm_fused, data, dtype, refine, frozen_lane=3, lay=None):
+    """Kernel (at the layout ``lay``, or at its own choice for None) and twin
+    from the same nonzero state with one frozen lane (``frozen_lane``; None:
+    none).  Returns (worst error relative to the twin's inf-norm, max abs
+    error, frozen lane bitwise untouched)."""
     dev = "cuda"
     t = {k: torch.as_tensor(v, dtype=dtype, device=dev)
          for k, v in data.items() if k != "sigma"}
@@ -254,8 +264,11 @@ def k1_case(torch, admm_fused, data, dtype, refine, frozen_lane=3):
         zeros(n), zeros(m), zeros(m), torch.zeros(B, dtype=torch.bool, device=dev),
         *args, k_iters=2, **kw)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
-    done[frozen_lane] = True
-    out_k = admm_fused.fused_iterations(x, z, y, done, *args, k_iters=10, **kw)
+    if frozen_lane is not None:
+        done[frozen_lane] = True
+    out_k = (admm_fused.fused_iterations(x, z, y, done, *args, k_iters=10, **kw)
+             if lay is None else admm_fused.launch(lay, x, z, y, done, *args, k_iters=10,
+                                                   **kw))
     out_t = admm_fused.plain_iterations(x, z, y, done, *args, k_iters=10, **kw)
     torch.cuda.synchronize()
     rel, absmax = 0.0, 0.0
@@ -264,8 +277,8 @@ def k1_case(torch, admm_fused, data, dtype, refine, frozen_lane=3):
         require(torch.isfinite(k_).all().item(), "K1 output finite")
         rel = max(rel, diff / max(t_.abs().max().item(), 1e-30))
         absmax = max(absmax, diff)
-    frozen_ok = all(torch.equal(o[frozen_lane], s[frozen_lane])
-                    for o, s in zip(out_k, (x, z, y)))
+    frozen_ok = frozen_lane is None or all(
+        torch.equal(o[frozen_lane], s[frozen_lane]) for o, s in zip(out_k, (x, z, y)))
     return rel, absmax, frozen_ok
 
 
@@ -334,31 +347,208 @@ def phase_build():
                 print("  ptxas: " + ln.strip(), flush=True)
 
 
+def k1_layout(admm_fused, B, dtype, n=N_QP, m=M_QP):
+    """The kernel's layout for a launch as a string."""
+    lay = admm_fused.layout(B, n, m, dtype)
+    tier = "staged" if lay.tier == 1 else "stream"
+    slab = f",slab={admm_fused.SLAB_ROWS}" if lay.tier == 1 else ""
+    stages = f",stages={lay.stages}" if lay.tier == 1 else ""
+    return (f"{tier}(bt={lay.bt},cluster=1{slab}{stages},threads={lay.threads},"
+            f"smem={lay.smem_bytes})")
+
+
 def phase_k1(torch, admm_fused):
+    """K1 against its twin: the quadrotor shape at B=16384, the compacted
+    straggler batch (1024), a ragged batch (1003) and one lane, float32 with
+    refinement within 1e-4 of the twin's scale and float64 within 1e-10; a
+    frozen lane bitwise untouched in every case (B=1 runs once frozen and
+    once not)."""
     res = {}
-    data = k1_problem(B_MAIN, N_QP, M_QP)
-    for dtype, refine, tol in ((torch.float32, True, 1e-4),
-                               (torch.float64, False, 1e-10)):
-        rel, absmax, frozen = k1_case(torch, admm_fused, data, dtype, refine)
+    cases = [(B, dtype, refine, tol, frozen)
+             for B, frozen in ((B_MAIN, 3), (1024, 3), (1003, 3), (1, None), (1, 0))
+             for dtype, refine, tol in ((torch.float32, True, 1e-4),
+                                        (torch.float64, False, 1e-10))]
+    for B, dtype, refine, tol, frozen_lane in cases:
+        data = k1_problem(B, N_QP, M_QP, seed=0 if B == B_MAIN else 1)
+        rel, absmax, frozen = k1_case(torch, admm_fused, data, dtype, refine, frozen_lane)
         name = str(dtype).split(".")[-1]
-        phase("K1", dtype=name, B=B_MAIN, n=N_QP, m=M_QP, k_iters=10,
-              refine=refine, rel_err=f"{rel:.3e}", max_abs_err=f"{absmax:.3e}",
-              tol=tol, frozen_lane_bitwise=frozen)
-        require(rel <= tol, f"K1 {name} within {tol} of its twin")
-        require(frozen, f"K1 {name} frozen lane untouched")
-        res[name] = absmax
-    # ragged batches: not a multiple of the tile (8 lanes in float32, 4 in
-    # float64)
-    for dtype, refine, tol, B in ((torch.float32, True, 1e-4, 1003),
-                                  (torch.float64, False, 1e-10, 1003)):
-        data = k1_problem(B, N_QP, M_QP, seed=1)
-        rel, absmax, frozen = k1_case(torch, admm_fused, data, dtype, refine)
-        name = str(dtype).split(".")[-1]
-        phase("K1-ragged", dtype=name, B=B,
-              tile=admm_fused.pick_tile(N_QP, M_QP, dtype),
-              rel_err=f"{rel:.3e}", tol=tol, frozen_lane_bitwise=frozen)
-        require(rel <= tol and frozen, f"K1 ragged {name}")
+        phase("K1", dtype=name, B=B, n=N_QP, m=M_QP, k_iters=10, refine=refine,
+              layout=k1_layout(admm_fused, B, dtype), rel_err=f"{rel:.3e}",
+              max_abs_err=f"{absmax:.3e}", tol=tol, frozen_lane=frozen_lane,
+              frozen_lane_bitwise=frozen)
+        require(rel <= tol, f"K1 {name} B={B} within {tol} of its twin")
+        require(frozen, f"K1 {name} B={B} frozen lane untouched")
+        if B == B_MAIN:
+            res[name] = absmax
+    # every staged (float32) tile that fits, forced, on the ragged batch
+    data = k1_problem(1003, N_QP, M_QP, seed=1)
+    for bt in admm_fused.STAGED_TILES:
+        lay = admm_fused.staged_layout(1003, N_QP, M_QP, bt)
+        if lay is None:
+            continue
+        rel, _, frozen = k1_case(torch, admm_fused, data, torch.float32, True, lay=lay)
+        phase("K1-tile", dtype="float32", B=1003, bt=bt, stages=lay.stages,
+              rel_err=f"{rel:.3e}", tol=1e-4, frozen_lane_bitwise=frozen)
+        require(rel <= 1e-4 and frozen, f"K1 float32 forced tile {bt}")
     return res
+
+
+L2_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+// every thread sums float4s of a buffer that fits the L2, `reps` times over,
+// through the L2-only path (ld.global.cg)
+__global__ void l2_read(const float4* __restrict__ buf, int n4, int reps, float* out) {
+  float a = 0.f, b = 0.f, c = 0.f, d = 0.f;
+  for (int r = 0; r < reps; ++r)
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += gridDim.x * blockDim.x) {
+      const float4 v = __ldcg(buf + i);
+      a += v.x; b += v.y; c += v.z; d += v.w;
+    }
+  if (a + b + c + d == 1234.5f) out[0] = a;
+}
+extern "C" int l2_probe(const void* buf, int n4, int reps, void* out, int blocks,
+                        int threads, void* stream) {
+  l2_read<<<blocks, threads, 0, (cudaStream_t)stream>>>((const float4*)buf, n4, reps,
+                                                         (float*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def l2_read_rate(torch, mb=24, reps=20):
+    """The card's L2 read rate (bytes/s): a probe kernel built here reads a
+    ``mb`` MB buffer (resident in the 50 MB L2 after a first pass) ``reps``
+    times over with 16-byte L2-only loads, 8 blocks of 256 threads an SM."""
+    import ctypes
+    b = _build_mod()
+    out_dir = b.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "l2_probe.cu"
+    src.write_text(L2_PROBE_SRC)
+    lib_path = out_dir / "l2_probe.so"
+    subprocess.run([b.find_nvcc(), *b.NVCC_FLAGS, "-shared", "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.l2_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.l2_probe.restype = ctypes.c_int
+    buf = torch.ones(mb * 2 ** 20 // 4, dtype=torch.float32, device="cuda")
+    out = torch.zeros(1, dtype=torch.float32, device="cuda")
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        require(lib.l2_probe(buf.data_ptr(), buf.numel() // 4, reps, out.data_ptr(), blocks,
+                             256, stream) == 0, "L2 probe launch")
+
+    ms = cuda_ms(torch, run, reps=5)
+    return reps * buf.numel() * 4 / (ms * 1e-3)
+
+
+def k1_l2_bytes(lay, n, m, k_iters, refine, elem):
+    """Bytes of the shared matrices a K1 launch reads from L2, reckoned from
+    its layout: every block streams its matrices once per use.  Staged tier:
+    A k_iters + 1 times, Minv (and M, Minv) once an iteration; stream tier:
+    A and its transposed copy, Minv (and M, Minv) once an iteration."""
+    nn = (3 if refine else 1) * n * n
+    if lay.tier == 0:
+        return lay.grid * k_iters * (2 * m * n + nn) * elem
+    return lay.grid * ((k_iters + 1) * m * n + k_iters * nn) * elem
+
+
+# K1 before the staged tier, the stream tier alone (PERF.md, step 0)
+K1_MS_BEFORE = {"float32_B16384": 6.5703, "float64_B16384": 11.9478,
+                "float32_B1024": 0.8575}
+
+
+def phase_k1_speed(torch, admm_fused, card, sweep=False):
+    """K1's time at the quadrotor shape (n=216, m=535, 10 iterations, CUDA
+    events), float32 with refinement and float64 without, at the main path's
+    batches (16384, the compacted 1024, and 1, the goldens); the bound and
+    what sets it; the time before the staged tier; the layout; float32 at
+    each batch also with each tier forced (the staged tier at the tile its
+    cost model picks); registers and spills of each kernel from ``-Xptxas
+    -v``; the L2 bytes a launch reckoned from the layout and the rate they
+    were read at; one 8-lane staged tile alone (its us per iteration from
+    10 and 20 iterations).  ``sweep`` (``--sweep-k1``) adds a ``K1-sweep``
+    line: the probe's L2 read rate, both tiers at B=2048 and 4096, every
+    staged tile at B=16384 and 1024, and each ring depth at 1024."""
+    f32, f64 = torch.float32, torch.float64
+    data = {B: k1_problem(B, N_QP, M_QP, seed=0 if B == B_MAIN else 1) for B in (B_MAIN, 1024)}
+
+    def args_of(B, dtype):
+        d = data[B] if B in data else k1_problem(B, N_QP, M_QP, seed=2)
+        t = {k: torch.as_tensor(v, dtype=dtype, device="cuda")
+             for k, v in d.items() if k != "sigma"}
+        zeros = lambda w: torch.zeros((B, w), dtype=dtype, device="cuda")
+        return (zeros(N_QP), zeros(M_QP), zeros(M_QP),
+                torch.zeros(B, dtype=torch.bool, device="cuda"),
+                t["q"], t["l"], t["u"], t["A"], t["M"], t["Minv"], t["rho"])
+
+    def time(B, dtype, k_iters=10, reps=10, lay=None):
+        a = args_of(B, dtype)
+        kw = dict(sigma=1e-5, alpha=1.6, k_iters=k_iters, refine=dtype == f32)
+        if lay is None:
+            return cuda_ms(torch, lambda: admm_fused.fused_iterations(*a, **kw), reps=reps)
+        return cuda_ms(torch, lambda: admm_fused.launch(lay, *a, **kw), reps=reps)
+
+    def tiers(B):
+        return (time(B, f32, reps=5, lay=admm_fused.staged_layout(B, N_QP, M_QP)),
+                time(B, f32, reps=5, lay=admm_fused.stream_layout(B, N_QP, M_QP, f32)))
+
+    cases = ((B_MAIN, f32), (B_MAIN, f64), (1024, f32), (1024, f64), (1, f32), (1, f64))
+    ms = {c: time(*c) for c in cases}
+    bound, by = k1_bound_ms(B_MAIN, N_QP, M_QP, 10)
+    lays = {c: admm_fused.layout(c[0], N_QP, M_QP, c[1]) for c in cases}
+    l2 = {c: k1_l2_bytes(lays[c], N_QP, M_QP, 10, c[1] == f32, 4 if c[1] == f32 else 8)
+          for c in cases}
+    both = {c: tiers(c[0]) for c in cases if c[1] == f32}
+    tile8 = admm_fused.staged_layout(8, N_QP, M_QP, 8)
+    alone = (time(8, f32, 20, reps=5, lay=tile8) - time(8, f32, 10, reps=5, lay=tile8)) * 1e2
+    log = _build_mod().build_info.get("log", "")
+    fmt = lambda r: (f"{r.get('registers')}/{r.get('spill_stores')}/{r.get('spill_loads')}"
+                     if r else "not measured")
+    regs = {}
+    for kern in ("admm_staged_kernel", "admm_stream_kernel"):
+        for key, r in kernel_resources(log, kern, by_tile=True).items():
+            regs[f"{kern.split('_')[1]}_{key}"] = fmt(r)
+    name = lambda c: f"{str(c[1]).split('.')[-1]}_B{c[0]}"
+    phase("K1-speed", card=repr(card), shape=f"n={N_QP},m={M_QP},k_iters=10",
+          **{f"ms_{name(c)}": f"{ms[c]:.4f}" for c in cases},
+          ms_before_float32_B16384=K1_MS_BEFORE["float32_B16384"],
+          ms_before_float64_B16384=K1_MS_BEFORE["float64_B16384"],
+          ms_before_float32_B1024=K1_MS_BEFORE["float32_B1024"],
+          bound_ms=f"{bound:.4f}", bound_by=by,
+          **{f"layout_{name(c)}": k1_layout(admm_fused, c[0], c[1]) for c in cases},
+          ms_staged_vs_stream="/".join(f"{name(c)}:{v[0]:.4f}:{v[1]:.4f}"
+                                       for c, v in both.items()),
+          **{f"l2_GB_{name(c)}": f"{l2[c] / 1e9:.3f}" for c in cases[:3]},
+          **{f"l2_TBps_{name(c)}": f"{l2[c] / ms[c] / 1e9:.3f}" for c in cases[:3]},
+          us_per_iteration_one_8_lane_tile=f"{alone:.3f}",
+          regs_spill_st_ld=";".join(f"{k}={v}" for k, v in sorted(regs.items())))
+    if sweep:
+        by_tile = {}
+        for t_ in admm_fused.STAGED_TILES:
+            lay16k = admm_fused.staged_layout(B_MAIN, N_QP, M_QP, t_)
+            if lay16k is not None:
+                by_tile[t_] = (time(B_MAIN, f32, reps=5, lay=lay16k),
+                               time(1024, f32, lay=admm_fused.staged_layout(1024, N_QP, M_QP, t_)))
+        by_stages = {}
+        for ns in range(2, admm_fused.MAX_STAGES + 1):
+            lay = admm_fused.staged_layout(1024, N_QP, M_QP, 8, ns)
+            if lay is not None:
+                by_stages[ns] = time(1024, f32, lay=lay)
+        more = {B: tiers(B) for B in (2048, 4096)}
+        phase("K1-sweep", card=repr(card), l2_probe_TBps=f"{l2_read_rate(torch) / 1e12:.3f}",
+              ms_float32_staged_vs_stream="/".join(f"B{B}:{v[0]:.4f}:{v[1]:.4f}"
+                                                   for B, v in more.items()),
+              ms_float32_staged_by_tile_B16384="/".join(f"{k}:{v[0]:.4f}"
+                                                        for k, v in by_tile.items()),
+              ms_float32_staged_by_tile_B1024="/".join(f"{k}:{v[1]:.4f}"
+                                                       for k, v in by_tile.items()),
+              ms_float32_B1024_bt8_by_stages="/".join(f"{k}:{v:.4f}"
+                                                      for k, v in by_stages.items()))
+    return {name(c): ms[c] for c in cases}
 
 
 def phase_k2(torch, batched_linalg):
@@ -416,12 +606,23 @@ def phase_main(torch, lt, mods):
     noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
     c = quadrotor_controller(lt, f32, dev, closed_loop_params(lt))
 
+    k1 = mods[0].fused_iterations
+    k1.trace = []
     reset_counts(*mods)
     t0 = time.perf_counter()
     steps = run_closed_loop(torch, c, x0, noise, Ad_t, Bd_t)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(*mods)
+    by_batch = {}
+    for B, lay in k1.trace:
+        by_batch[(B, lay.bt)] = by_batch.get((B, lay.bt), 0) + 1
+    k1.trace = None
+    phase("K1-launches", path="lmpc", launches=launches["admm_fused"],
+          by_batch="/".join(f"B{B}:{n_}" for (B, _), n_ in sorted(by_batch.items())),
+          tiles="/".join(f"B{B}:bt{bt}" for B, bt in sorted(by_batch)))
+    require(sum(by_batch.values()) == launches["admm_fused"], "K1 trace counts every launch")
+    launches["admm_fused_by_batch"] = {B: n_ for (B, _), n_ in by_batch.items()}
 
     status = torch.stack([s[0] for s in steps], 1).cpu().numpy()  # (B, K)
     solver = torch.stack([s[1] for s in steps], 1).cpu().numpy()
@@ -1048,8 +1249,9 @@ def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, main_wall=None):
             "k2_nlmpc": (k2_ms, k2_plain, k2_lib)}
 
 
-KERNEL_FAMILIES = (("qp_inner", "K3 qp_inner"), ("chol_inverse", "K2 chol_inverse"),
-                   ("traj_factor", "K4 traj_factor"), ("traj_sweep", "K5 traj_sweep"))
+KERNEL_FAMILIES = (("admm_", "K1 admm_fused"), ("qp_inner", "K3 qp_inner"),
+                   ("chol_inverse", "K2 chol_inverse"), ("traj_factor", "K4 traj_factor"),
+                   ("traj_sweep", "K5 traj_sweep"))
 
 
 def device_ms_by_family(prof):
@@ -1106,7 +1308,8 @@ def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
               idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
               kernel_launches_per_step=f"{count / n:.0f}",
               host_reads_per_step=f"{host.flag.reads / n:.1f}",
-              sqp_iters_mean=f"{c._last_iters.float().mean().item():.2f}",
+              **{f"{'admm' if tag == 'lmpc' else 'sqp'}_iters_mean":
+                 f"{c._last_iters.float().mean().item():.2f}"},
               **{k.replace(" ", "_"): f"{v / n:.2f}ms({100 * v / max(busy, 1e-9):.1f}%)"
                  for k, v in fam.items() if v > 0})
         return x, u
@@ -1119,6 +1322,22 @@ def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
     torch.cuda.synchronize()
     phase(f"profile-{tag}-memory",
           peak_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+
+
+def phase_profile_lmpc(torch, lt, host):
+    """``--profile``: the quadrotor closed loop (B=16384; the LMPC path reads
+    the host through ``.tolist()`` in its check blocks, which
+    ``host_reads_per_step`` does not count)."""
+    dev, f32 = "cuda", torch.float32
+    Ad, Bd = quadrotor_model()
+    Ad_t = torch.as_tensor(Ad, dtype=f32, device=dev)
+    Bd_t = torch.as_tensor(Bd, dtype=f32, device=dev)
+    x0_h, noise_h = closed_loop_inputs(B_MAIN, K_MAIN)
+    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
+    plant = lambda x, u, k: x @ Ad_t.T + u @ Bd_t.T + noise[k]
+    profile_loop(torch, host, "lmpc", quadrotor_controller(lt, f32, dev, closed_loop_params(lt)),
+                 plant, torch.as_tensor(x0_h, dtype=f32, device=dev),
+                 torch.zeros((B_MAIN, 4), dtype=f32, device=dev))
 
 
 def phase_profile_nlmpc(torch, lt, host):
@@ -1466,6 +1685,64 @@ def phase_k3_clocks(torch, qpf):
         print_clocks("k3-clocks", B, ms, read()[:B, :n_sites] / reps, sites, iters)
 
 
+def phase_k1_clocks(torch, admm_fused):
+    """``--k1-clocks``: where a staged K1 block's time goes.  ``csrc/
+    admm_fused.cu`` marks the end of each phase with ``K1_CLOCK(site);  //
+    what the phase does`` (nothing in the kernel library); the copy built
+    here (``clocked_library``) defines it so that thread 0 of each block
+    reads ``clock()`` there and adds the cycles since the last site to that
+    site's counter.  Float32 with refinement at the quadrotor shape, 10
+    iterations, the staged tier at the tile its cost model picks for
+    B=16384, with the full batch and with one tile alone.
+    Diagnostic only: the main path runs the kernel without counters."""
+    import re
+    src = (_build_mod().CSRC / "admm_fused.cu").read_text()
+    lines, sites = src.splitlines(), {}
+    for i, text in enumerate(lines):
+        m = re.search(r"\bK1_CLOCK\((\d+)\);\s*//\s*(.*)", text)
+        if m:
+            sites[int(m.group(1))] = f"line {i + 1}: {m.group(2).strip()}"
+    n_sites = len(sites)
+    require(sorted(sites) == list(range(n_sites)) and n_sites <= 16,
+            "admm_fused.cu numbers its K1_CLOCK sites 0, 1, ... (at most 16)")
+    rows = 4096
+    head = ("#define K1_CLOCK_START unsigned k1c_[16] = {}; unsigned k1t_ = (unsigned)clock();\n"
+            "#define K1_CLOCK(site) do { const unsigned t_ = (unsigned)clock(); "
+            "k1c_[site] += t_ - k1t_; k1t_ = t_; } while (0)\n"
+            "#define K1_CLOCK_FLUSH() if (threadIdx.x == 0 && blockIdx.x < "
+            f"{rows}) {{ _Pragma(\"unroll\") "
+            "for (int i_ = 0; i_ < 16; ++i_) clocks[blockIdx.x * 16 + i_] += k1c_[i_]; }\n")
+    fn, read = clocked_library("admm_fused.cu", head + src, "libmpc_admm_fused_f32", rows, 16)
+    f32 = torch.float32
+    data = k1_problem(B_MAIN, N_QP, M_QP)
+    t = {k: torch.as_tensor(v, dtype=f32, device="cuda") for k, v in data.items()
+         if k != "sigma"}
+    bt = admm_fused.staged_layout(B_MAIN, N_QP, M_QP).bt
+    for B in (B_MAIN, bt):
+        lay = admm_fused.staged_layout(B, N_QP, M_QP, bt)
+        ins = [torch.zeros((B, N_QP), device="cuda"), torch.zeros((B, M_QP), device="cuda"),
+               torch.zeros((B, M_QP), device="cuda"),
+               torch.zeros(B, dtype=torch.bool, device="cuda"),
+               t["q"][:B].contiguous(), t["l"][:B].contiguous(), t["u"][:B].contiguous()]
+        outs = [torch.empty_like(ins[0]), torch.empty_like(ins[1]), torch.empty_like(ins[2])]
+
+        def call():
+            code = fn(*(a.data_ptr() for a in ins), t["A"].data_ptr(), None,
+                      t["M"].data_ptr(), t["Minv"].data_ptr(), t["rho"].data_ptr(),
+                      *(o.data_ptr() for o in outs), B, N_QP, M_QP, 10, data["sigma"], 1.6,
+                      1, lay.tier, lay.bt, lay.stages,
+                      torch.cuda.current_stream().cuda_stream)
+            require(code == 0, f"instrumented K1 launched ({code})")
+
+        call()
+        torch.cuda.synchronize()
+        read()
+        reps = 5
+        ms = cuda_ms(torch, call, reps=reps, warmup=0)
+        cyc = read()[:min(lay.grid, rows), :n_sites] / reps
+        print_clocks(f"k1-clocks-bt{lay.bt}", B, ms, cyc, sites, 10.0)
+
+
 # -- the networked oscillators of examples/networked_oscillators_ex.cpp --------
 def osc_dynamics(x, u, k):
     """Six diffusively coupled Van der Pol oscillators (bench.py:565-578):
@@ -1706,15 +1983,22 @@ def phase_k4(torch, ts, lt, tk):
     return res
 
 
-def kernel_resources(log, name):
+def kernel_resources(log, name, by_tile=False):
     """Registers and spill bytes of each float/double instance of kernel
-    ``name``, from the ``-Xptxas -v`` lines of the build."""
+    ``name``, from the ``-Xptxas -v`` lines of the build; with ``by_tile``,
+    of each (type, first integer template argument) instance, keyed
+    ``float32_24`` and so on."""
     import re
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            cur = ("float32" if f"{name}If" in ln else "float64" if f"{name}Id" in ln
-                   else None)
+            # a kernel templated on its tile alone is a float32 one
+            t = re.search(rf"{name}I([fd])?(?:Li(\d+)E)?", ln)
+            cur = None
+            if t:
+                cur = "float64" if t[1] == "d" else "float32"
+                if by_tile and t[2]:
+                    cur += f"_{t[2]}"
         elif cur and "spill stores" in ln:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             out.setdefault(cur, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
@@ -2170,6 +2454,11 @@ def main(argv=None) -> int:
                     help="cycles of each phase of K3's register tier (an instrumented copy)")
     ap.add_argument("--k4-clocks", action="store_true",
                     help="cycles of each barrier phase of K4 (an instrumented copy)")
+    ap.add_argument("--k1-clocks", action="store_true",
+                    help="cycles of each phase of a staged K1 block (an instrumented copy)")
+    ap.add_argument("--sweep-k1", action="store_true",
+                    help="with k1: the L2 probe, K1's tiers at more batches, every staged "
+                         "tile and ring depth")
     opts = ap.parse_args(argv)
     want = set(opts.phases.split(","))
     if not want <= set(PHASES):
@@ -2195,6 +2484,7 @@ def main(argv=None) -> int:
     phase_build()
     if "k1" in want:
         k1_err = phase_k1(torch, admm_fused)
+        k1_speed = phase_k1_speed(torch, admm_fused, card, opts.sweep_k1)
     if "k2" in want:
         k2_err = phase_k2(torch, batched_linalg)
         k2_err.update(phase_k2_nlmpc(torch, batched_linalg))
@@ -2220,6 +2510,8 @@ def main(argv=None) -> int:
     if "osc" in want:
         launches_osc, wall_osc = phase_main_osc(torch, lt, tk, sqp, qpf, host, mods)
         osc_err = phase_matched_osc(torch, lt, sqp)
+    if opts.profile and "lmpc" in want:
+        phase_profile_lmpc(torch, lt, host)
     if opts.profile and "nlmpc" in want:
         phase_profile_nlmpc(torch, lt, host)
     if opts.profile and "osc" in want:
@@ -2227,6 +2519,8 @@ def main(argv=None) -> int:
         phase_profile_osc_rollout(torch, lt, tk, host, mods)
     if opts.sweep_k3:
         phase_sweep_k3(torch, qpf)
+    if opts.k1_clocks:
+        phase_k1_clocks(torch, admm_fused)
     if opts.k3_clocks:
         phase_k3_clocks(torch, qpf)
     if opts.k4_clocks:
@@ -2258,7 +2552,10 @@ def main(argv=None) -> int:
     kernels = [
         entry("admm_fused", "libmpc_tpu_torch/csrc/admm_fused.cu",
               "libmpc_tpu/ops/admm_pallas.py:143", k1_err["float32"],
-              shape=f"B={B_MAIN},n={N_QP},m={M_QP},k_iters=10,float32"),
+              shape=f"B={B_MAIN},n={N_QP},m={M_QP},k_iters=10,float32",
+              layout=k1_layout(admm_fused, B_MAIN, torch.float32),
+              launches_by_batch=launches["admm_fused_by_batch"],
+              ms_float64=k1_speed["float64_B16384"], ms_B1024=k1_speed["float32_B1024"]),
         entry("chol_inverse", "libmpc_tpu_torch/csrc/chol_inverse.cu",
               "libmpc_tpu/ops/batched_linalg.py:110", k2_err["float32"],
               shape=f"({B_MAIN},24,24),float32",

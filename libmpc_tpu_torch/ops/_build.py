@@ -49,9 +49,9 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     # x z y done q l u A At M Minv rho ox oz oy B n m k_iters sigma alpha
-    # refine bt stream
-    "libmpc_admm_fused_f32": [_P] * 15 + [_I] * 4 + [_D, _D, _I, _I, _P],
-    "libmpc_admm_fused_f64": [_P] * 15 + [_I] * 4 + [_D, _D, _I, _I, _P],
+    # refine tier bt stages stream (At null where the layout is staged)
+    "libmpc_admm_fused_f32": [_P] * 15 + [_I] * 4 + [_D, _D, _I, _I, _I, _I, _P],
+    "libmpc_admm_fused_f64": [_P] * 15 + [_I] * 4 + [_D, _D, _I, _I, _I, _I, _P],
     # C out B k stream
     "libmpc_chol_inverse_f32": [_P, _P, _I, _I, _P],
     "libmpc_chol_inverse_f64": [_P, _P, _I, _I, _P],

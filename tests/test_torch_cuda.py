@@ -71,6 +71,131 @@ def test_fused_iterations_kernel_matches_twin(cuda, dtype, refine, tol, B):
         assert torch.equal(g[3], start[3])
 
 
+def _k1_against_twin(device, B, n, m, dtype, frozen=3, seed=0, lay=None):
+    """K1 (at ``lay``, or at the layout's own choice for None) and its twin,
+    10 iterations from a nonzero state (two twin iterations from the
+    origin), lane ``frozen`` frozen (None: none).  Returns the worst error
+    relative to the twin's scale, whether the frozen lane kept x/z/y
+    bitwise, and the layout the launch used."""
+    refine = dtype == torch.float32
+    q, l, u, A, M, Minv, rho = _k1_data(B, n, m, dtype, device, seed)
+    zeros = lambda w: torch.zeros((B, w), dtype=dtype, device=device)
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    kw = dict(sigma=1e-5, alpha=1.6, refine=refine)
+    x, z, y = admm_fused.plain_iterations(zeros(n), zeros(m), zeros(m), done,
+                                          q, l, u, A, M, Minv, rho, k_iters=2, **kw)
+    if frozen is not None:
+        done[frozen] = True
+    admm_fused.fused_iterations.trace = []
+    try:
+        args = (x, z, y, done, q, l, u, A, M, Minv, rho)
+        got = (admm_fused.fused_iterations(*args, k_iters=10, **kw) if lay is None
+               else admm_fused.launch(lay, *args, k_iters=10, **kw))
+        (_, lay), = admm_fused.fused_iterations.trace
+    finally:
+        admm_fused.fused_iterations.trace = None
+    want = admm_fused.plain_iterations(x, z, y, done, q, l, u, A, M, Minv, rho,
+                                       k_iters=10, **kw)
+    torch.cuda.synchronize()
+    rel = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+    kept = frozen is None or all(torch.equal(g[frozen], s[frozen])
+                                 for g, s in zip(got, (x, z, y)))
+    return rel, kept, lay
+
+
+_K1_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+@pytest.mark.parametrize("dtype,tier", [(torch.float32, None), (torch.float32, 1),
+                                        (torch.float32, 0), (torch.float64, None)])
+@pytest.mark.parametrize("B,frozen", [(1024, 3), (1003, 3), (37, 3), (1, 0), (1, None)])
+def test_fused_iterations_at_the_quadrotor_shape(cuda, dtype, B, frozen, tier):
+    """The layout's own choice, then, in float32, each tier forced (the
+    staged tier at the tile its cost model picks)."""
+    lay = {None: None, 1: admm_fused.staged_layout(B, 216, 535),
+           0: admm_fused.stream_layout(B, 216, 535, dtype)}[tier]
+    rel, kept, ran = _k1_against_twin(cuda, B, 216, 535, dtype, frozen, lay=lay)
+    assert ran == (lay or admm_fused.layout(B, 216, 535, dtype))
+    assert rel <= _K1_TOL[dtype] and kept
+
+
+@pytest.mark.parametrize("bt", [16, 8, 4])
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_fused_iterations_every_staged_tile(cuda, bt, stages):
+    """Each tile and ring depth forced at B=61: no multiple of any tile, so
+    every tile's last block is ragged."""
+    dtype = torch.float32
+    lay = admm_fused.staged_layout(61, 24, 40, bt, stages)
+    assert (lay.tier, lay.bt, lay.stages) == (1, bt, stages)
+    rel, kept, _ = _k1_against_twin(cuda, 61, 24, 40, dtype, lay=lay)
+    assert rel <= _K1_TOL[dtype] and kept
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(13, 40), (260, 30)])
+def test_fused_iterations_stream_tier(cuda, dtype, n, m):
+    """Rows that are not a multiple of 16 bytes (n = 13) and n past the
+    staged tier's 256 run the stream tier (as float64 always does)."""
+    rel, kept, lay = _k1_against_twin(cuda, 37, n, m, dtype)
+    assert lay.tier == 0
+    assert rel <= _K1_TOL[dtype] and kept
+
+
+def test_fused_iterations_misaligned_matrices_run_the_stream_tier(cuda):
+    q, l, u, A, M, Minv, rho = _k1_data(37, 24, 40, torch.float32, cuda)
+    A2 = torch.empty(A.numel() + 1, dtype=A.dtype, device=cuda)[1:].view_as(A)
+    A2.copy_(A)
+    assert A2.data_ptr() % 16 != 0 and A2.is_contiguous()
+    x = torch.zeros((37, 24), device=cuda)
+    z = torch.zeros((37, 40), device=cuda)
+    done = torch.zeros(37, dtype=torch.bool, device=cuda)
+    kw = dict(sigma=1e-5, alpha=1.6, k_iters=10, refine=True)
+    admm_fused.fused_iterations.trace = []
+    try:
+        got = admm_fused.fused_iterations(x, z, z, done, q, l, u, A2, M, Minv, rho, **kw)
+        (_, lay), = admm_fused.fused_iterations.trace
+    finally:
+        admm_fused.fused_iterations.trace = None
+    want = admm_fused.plain_iterations(x, z, z, done, q, l, u, A, M, Minv, rho, **kw)
+    assert lay.tier == 0
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,n,m,tier,bt,stages,misaligned", [
+    (torch.float32, 13, 40, 1, 8, 2, False),    # 52-byte rows
+    (torch.float64, 24, 40, 1, 4, 2, False),    # the staged tier is float32 only
+    (torch.float32, 260, 30, 1, 4, 2, False),   # past 256 columns
+    (torch.float32, 24, 40, 1, 8, 2, True),     # A not 16-byte aligned
+    (torch.float32, 24, 40, 1, 12, 2, False),   # no such tile
+    (torch.float32, 24, 40, 1, 8, 5, False),    # more stages than the ring has
+    (torch.float32, 24, 40, 1, 8, 1, False),
+    (torch.float32, 216, 535, 1, 16, 5, False),
+    (torch.float32, 216, 535, 0, 16, 0, False),  # stream tiles: 8 lanes at most
+    (torch.float64, 216, 535, 0, 8, 0, False),   # 4 in float64
+    (torch.float32, 216, 535, 0, 8, 2, False),   # no ring in the stream tier
+    (torch.float32, 2000, 5000, 0, 4, 0, False),  # past the shared memory
+])
+def test_fused_iterations_launcher_checks_the_layout(cuda, dtype, n, m, tier, bt, stages,
+                                                     misaligned):
+    """The caller (``admm_fused.layout``) owns the choice of layout; the
+    launcher refuses one that does not apply to the shape or does not fit
+    the shared memory, and counts no launch."""
+    B = 37
+    q, l, u, A, M, Minv, rho = _k1_data(B, n, m, dtype, cuda)
+    if misaligned:
+        A2 = torch.empty(A.numel() + 1, dtype=dtype, device=cuda)[1:].view_as(A)
+        A = A2.copy_(A)
+    zeros = lambda w: torch.zeros((B, w), dtype=dtype, device=cuda)
+    done = torch.zeros(B, dtype=torch.bool, device=cuda)
+    lay = admm_fused.Layout(tier, bt, 16 * bt if tier else 384, 0, -(-B // bt), stages)
+    launches = admm_fused.fused_iterations.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        admm_fused.launch(lay, zeros(n), zeros(m), zeros(m), done, q, l, u, A, M, Minv, rho,
+                          sigma=1e-5, alpha=1.6, k_iters=10, refine=True)
+    assert admm_fused.fused_iterations.launches == launches
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
 def test_chol_inverse_kernel_matches_twin(cuda, dtype, tol):
     rng = np.random.default_rng(1)
