@@ -5,9 +5,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_k1_ab.py OTHER_CHECKOUT [--pairs 8] [--reps 24]
 
 The other checkout's ``libmpc_tpu_torch/ops/admm_fused.py`` is loaded as a
-module of another package (``k1_other.ops``), so that its ``_build.py``
-builds that checkout's kernel library into that checkout's ``_build``
-directory; nothing else of it is imported.  Then, in turns (ABBA), windows
+module of another package (``chip_smoke.load_other``), so that its
+``_build.py`` builds that checkout's kernel library into that checkout's
+``_build`` directory; nothing else of it is imported.  Then, in turns (ABBA), windows
 of the quadrotor LMPC steady state (``chip_smoke.phase_times``: warm
 re-solves of one batch of 16384) run with ``ops.admm`` calling this tree's
 ``fused_iterations`` (``this``) or the other's (``other``), and K1 alone
@@ -21,29 +21,12 @@ wrapper and its kernel library.  Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import statistics
 import sys
 import time
-import types
 from pathlib import Path
 
 import chip_smoke as cs
-
-
-def load_other(root: Path):
-    """The other checkout's ``ops/admm_fused.py`` as ``k1_other.ops.admm_fused``."""
-    pkg = root.resolve() / "libmpc_tpu_torch"
-    for name, path in (("k1_other", pkg), ("k1_other.ops", pkg / "ops")):
-        mod = types.ModuleType(name)
-        mod.__path__ = [str(path)]
-        sys.modules[name] = mod
-    spec = importlib.util.spec_from_file_location("k1_other.ops.admm_fused",
-                                                  pkg / "ops" / "admm_fused.py")
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def main(argv=None) -> int:
@@ -61,7 +44,7 @@ def main(argv=None) -> int:
     from libmpc_tpu_torch.ops import admm, admm_fused
 
     admm.full_precision("cuda")  # TF32 off, as chip_smoke runs the loops
-    other = load_other(opts.other)
+    other = cs.load_other(opts.other, "admm_fused")
     impls = {"this": admm_fused.fused_iterations, "other": other.fused_iterations}
     f32, dev, B = torch.float32, "cuda", cs.B_MAIN
 

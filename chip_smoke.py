@@ -27,7 +27,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
 4. K2 (batched Cholesky inverse) against its twin, float32 and float64, at
    the LMPC polish's shape, at the Van der Pol path's shapes and at the
    oscillators' border shape (1024,8,8); its blocked recursion at
-   (256,302,302) and (256,240,240)
+   (256,302,302) and (256,240,240); every k from 1 to 64 at the layout's
+   choice and, for k <= 32, with the block tier forced (``K2-every-k``);
+   ``K2-speed`` lines
 5. K3 (whole inner-QP solve) against its twin, float64 and float32, ragged
    batch included; a ``K3-speed`` line
 6. K4 (banded factorization) and K5 (banded solve) against their twins,
@@ -65,7 +67,15 @@ probe's L2 read rate, tiers at more batches, tiles and ring depths);
 ``K3-speed`` line with its float32 and float64 time, bound, registers,
 spills, tier, iteration histogram and one instance's time per iteration;
 ``--phases k4`` is K4's, with a ``K4-speed`` line; ``--phases k5`` is
-K5's, with a ``K5-speed`` line),
+K5's, with a ``K5-speed`` line; ``--phases k2`` is K2's, with a
+``K2-speed`` line for each of ``K2_SPEED_SHAPES`` in both types: device time
+from CUDA graphs of launches and an empty kernel's on K2's grid (medians of
+seven interleaved repetitions, and the range of their difference), host us
+a call, the bound, ``torch.linalg.inv``'s time, the time before the
+redesign (``--k2-before DIR`` times another checkout's K2 in the same run),
+the layout, registers and spills (``--sweep-k2`` adds a ``K2-sweep`` line:
+every other layout the library has, forced); ``--k2-ablate`` times K2's
+register tier without its passes or its stores),
 ``--profile`` adds a ``torch.profiler`` breakdown of the loops whose
 phases run (``lmpc``: the quadrotor; ``nlmpc``: Van der Pol; ``osc``: the
 oscillators, and the oscillator rollout's idle share from one traced
@@ -114,10 +124,15 @@ OSC_JAX_SUCCESS = {256: 0.999, 512: 0.9966, 1024: 0.9973}  # the JAX package's f
 K3_KW = dict(sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6, max_iter=300,
              check_every=25)
 K3_MS_BEFORE = 2.566  # K3 float32 at Van der Pol's shape before its redesign (PERF.md)
-# published peaks of one H100 SXM: float32 outside the tensor cores, and the
-# device memory rate
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W): float32
+# outside the tensor cores (the tensor cores' TF32 rounds its inputs, so it is
+# not the same function), float64 on the tensor cores (their FP64 products
+# round as an fma does, so 67 TFLOP/s is the least time for float64 work;
+# 34 outside them), and the device memory rate
 PEAK_FLOPS_F32 = 67e12
+PEAK_FLOPS_F64 = 67e12
 PEAK_BYTES = 3.35e12
+SECTOR_BYTES = 32  # the unit the memory moves
 
 
 def require(ok: bool, what: str) -> None:
@@ -301,6 +316,72 @@ def cuda_ms(torch, fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, n=20, reps=5):
+    """Mean device milliseconds per call of ``fn``: CUDA events around
+    ``reps`` replays of a CUDA graph that holds ``n`` calls, so that the
+    host's time per call is not in it (captured after two warm calls, in
+    relaxed mode)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph
+    return ms
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds per call of ``fn``: the host clock around ``n``
+    calls that do not wait for the device (the device's queue is deep
+    enough for them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
+def load_other(root, module):
+    """``libmpc_tpu_torch/ops/<module>.py`` of another checkout at ``root``
+    as a module of another package (``other_<module>.ops``), so that its
+    ``_build.py`` builds that checkout's kernel library into that
+    checkout's ``_build`` directory; nothing else of it is imported."""
+    import importlib.util
+    import types
+
+    pkg = Path(root).resolve() / "libmpc_tpu_torch"
+    top = f"other_{module}"
+    for name, path in ((top, pkg), (f"{top}.ops", pkg / "ops")):
+        mod = types.ModuleType(name)
+        mod.__path__ = [str(path)]
+        sys.modules[name] = mod
+    spec = importlib.util.spec_from_file_location(f"{top}.ops.{module}",
+                                                  pkg / "ops" / f"{module}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # -- phases -------------------------------------------------------------------
@@ -721,10 +802,27 @@ def k1_bound_ms(B, n, m, k_iters):
     return _bound(words, B * k_iters * (4 * m * n + 6 * n * n))
 
 
-def k2_bound_ms(B, k):
-    """Least time for K2, float32: B k^2 words in, as many out; k^3
-    operations per matrix (k^3/3 for the factor, 2 k^3/3 for the inverse)."""
-    return _bound(2 * B * k * k, B * k ** 3)
+def lower_triangle_bytes(B, k, elem):
+    """Bytes in the 32-byte sectors that hold the lower triangles of a
+    contiguous batch of B k x k matrices (row r's positions 0..r), the
+    least an SPD inverse by Cholesky reads of its input."""
+    start = (np.arange(B, dtype=np.int64)[:, None] * k * k
+             + np.arange(k, dtype=np.int64)[None, :] * k).ravel()
+    first = start * elem // SECTOR_BYTES
+    last = ((start + np.tile(np.arange(k, dtype=np.int64), B) + 1) * elem - 1) // SECTOR_BYTES
+    sectors = int((last - first + 1).sum() - (first[1:] == last[:-1]).sum())
+    return sectors * SECTOR_BYTES
+
+
+def k2_bound_ms(B, k, elem=4):
+    """Least time for K2: the lower triangles in (at the sectors'
+    granularity, :func:`lower_triangle_bytes`) and B k^2 elements out; k^3
+    operations per matrix (k^3/3 for the factor, 2 k^3/3 for the inverse),
+    at the float32 peak for float32 (``elem`` 4) and the float64 one for
+    float64."""
+    t_bytes = (lower_triangle_bytes(B, k, elem) + B * k * k * elem) / PEAK_BYTES
+    t_ops = B * k ** 3 / (PEAK_FLOPS_F32 if elem == 4 else PEAK_FLOPS_F64)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_times(torch, lt, admm_fused, batched_linalg, card):
@@ -1507,38 +1605,45 @@ def phase_k3_speed(torch, qpf, card):
             "refactorizations_twin": refact}
 
 
+def variant_library(name, text, tag):
+    """Build ``text``, a modified copy of ``csrc/<name>``, as a source file
+    of another name (``<stem>_<tag>.cu``: its anonymous namespace is its own)
+    into a shared library of its own beside the kernel library, linked with
+    ``-Bsymbolic`` so that every call it makes, the CUDA runtime's included,
+    binds inside it and never to the kernel library loaded in the same
+    process; returns it loaded (``ctypes.CDLL``)."""
+    import ctypes
+    b = _build_mod()
+    out = b.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    for h in b.HEADERS:
+        (out / h).write_text((b.CSRC / h).read_text())
+    src = out / f"{name[:-3]}_{tag}.cu"
+    src.write_text(text)
+    lib_path = src.with_suffix(".so")
+    subprocess.run([b.find_nvcc(), *b.NVCC_FLAGS, "-shared", "-Xlinker", "-Bsymbolic",
+                    "-o", str(lib_path), str(src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib_path))
+
+
 def clocked_library(name, text, entry, rows, width):
     """Build ``text``, an instrumented copy of ``csrc/<name>`` that adds
-    cycles into ``__device__ unsigned long long clocks[rows * width]``, into
-    a shared library of its own beside the kernel library, and load it.
-
-    The copy is a source file of another name (its anonymous namespace is
-    its own), its entry point ``entry`` is renamed ``clocked_<entry>``, and
-    it is linked with ``-Bsymbolic``, so that every call it makes, the CUDA
-    runtime's included, binds inside it and never to the kernel library
-    loaded in the same process.  Returns the entry point (with the kernel
+    cycles into ``__device__ unsigned long long clocks[rows * width]``, with
+    :func:`variant_library`, its entry point ``entry`` renamed
+    ``clocked_<entry>``.  Returns the entry point (with the kernel
     library's argument types) and ``read()``, which returns the counters as
     a (rows, width) array and zeroes them."""
     import ctypes
     b = _build_mod()
-    out = b.BUILD_DIR / "clocks"
-    out.mkdir(parents=True, exist_ok=True)
-    for h in b.HEADERS:
-        (out / h).write_text((b.CSRC / h).read_text())
     require(entry in text, f"{name} defines {entry}")
-    src = out / f"{name[:-3]}_clocked.cu"
-    src.write_text(
-        f"__device__ unsigned long long clocks[{rows * width}];\n"
-        + text.replace(entry, f"clocked_{entry}")
-        + '\nextern "C" int clocks_read(unsigned long long* out) {\n'
-          "  cudaError_t e = cudaMemcpyFromSymbol(out, clocks, sizeof(clocks));\n"
-          f"  static unsigned long long zero[{rows * width}];\n"
-          "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(clocks, zero, sizeof(zero));\n"
-          "  return (int)e;\n}\n")
-    lib_path = src.with_suffix(".so")
-    subprocess.run([b.find_nvcc(), *b.NVCC_FLAGS, "-shared", "-Xlinker", "-Bsymbolic",
-                    "-o", str(lib_path), str(src)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = variant_library(name, f"__device__ unsigned long long clocks[{rows * width}];\n"
+                          + text.replace(entry, f"clocked_{entry}")
+                          + '\nextern "C" int clocks_read(unsigned long long* out) {\n'
+                            "  cudaError_t e = cudaMemcpyFromSymbol(out, clocks, sizeof(clocks));\n"
+                            f"  static unsigned long long zero[{rows * width}];\n"
+                            "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(clocks, zero, "
+                            "sizeof(zero));\n"
+                            "  return (int)e;\n}\n", "clocked")
     fn = getattr(lib, f"clocked_{entry}")
     fn.argtypes = b._SIGNATURES[entry]
     fn.restype = ctypes.c_int
@@ -2226,6 +2331,236 @@ def phase_k2_blocked(torch, batched_linalg):
     return res
 
 
+def phase_k2_every_k(torch, bl):
+    """K2 against its twin at every k from 1 to 64 in both types, on a ragged
+    batch of 37 (past a block's end in every layout): at :func:`layout`'s
+    choice and, for k <= 32, with the block tier forced; ||C C^-1 - I|| too.
+    Returns the largest float32 error."""
+    worst = {}
+    for dtype, tol, rtol in ((torch.float32, 1e-4, 1e-3), (torch.float64, 1e-10, 1e-8)):
+        name = str(dtype).split(".")[-1]
+        for k in range(1, bl.MAX_K + 1):
+            C = torch.as_tensor(spd_batch(37, k, seed=k), dtype=dtype, device="cuda")
+            eye = torch.eye(k, dtype=torch.float64, device="cuda")
+            want = bl.chol_inverse_plain(C)
+            lays = [bl.layout(37, k, dtype)]
+            if k <= bl.REG_MAX_K:
+                lays.append(bl.block_layout(37, k, dtype))
+            for lay in lays:
+                got = bl.launch(lay, C)
+                torch.cuda.synchronize()
+                rel = _rel(got, want)
+                resid = (C.double() @ got.double() - eye).abs().amax(dim=(1, 2)).max().item()
+                tier = "register" if lay.tier == bl.TIER_REGISTER else "block"
+                require(rel <= tol, f"K2 {name} k={k} {tier} tier within {tol} of its twin")
+                require(resid <= rtol, f"K2 {name} k={k} {tier} tier ||C Cinv - I|| <= {rtol}")
+                w = worst.setdefault((name, tier), (0.0, 0, 0.0))
+                if rel > w[0]:
+                    worst[(name, tier)] = (rel, k, (got - want).abs().max().item())
+    phase("K2-every-k", B=37, k="1..64",
+          **{f"worst_rel_{n}_{t}": f"{v[0]:.3e}@k={v[1]}" for (n, t), v in worst.items()},
+          tol_float32=1e-4, tol_float64=1e-10)
+    return max(v[2] for (n, _), v in worst.items() if n == "float32")
+
+
+# K2's shapes in the K2-speed line: the LMPC polish, the Van der Pol
+# second-order correction, the oscillators' border, and the widths of the
+# UGV's KKT inverse (61) and the blocked recursion's leaves (48)
+K2_SPEED_SHAPES = ((B_MAIN, 24), (B_NL, ME_NL), (B_OSC, W_O), (256, 48), (256, 61))
+# K2 before its redesign (a warp a matrix, shared-memory chains) by
+# "float32_B16384_k24" and so on: (device ms from a CUDA graph of launches,
+# host us a call); chip_smoke.py --phases k2 --k2-before on that tree, step 0
+# of K2's redesign in PERF.md
+K2_MS_BEFORE = {
+    "float32_B16384_k24": (0.21194, 15.25), "float64_B16384_k24": (0.34490, 19.17),
+    "float32_B4096_k20": (0.04560, 15.03), "float64_B4096_k20": (0.07319, 18.78),
+    "float32_B1024_k8": (0.00848, 13.67), "float64_B1024_k8": (0.00970, 20.81),
+    "float32_B256_k48": (0.12925, 29.22), "float64_B256_k48": (0.15261, 13.48),
+    "float32_B256_k61": (0.19155, 14.92), "float64_B256_k61": (0.22932, 14.90),
+}
+
+
+def k2_resources(log):
+    """Registers, stack frame and spill bytes of each K2 kernel instance,
+    from the ``-Xptxas -v`` lines of the build, keyed ``float32_kp24_g4``
+    (register tier) or ``float32_block``."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"chol_inverse_(reg|block)_kernelI([fd])(?:Li(\d+)ELi(\d+)E)?", ln)
+            cur = None
+            if m:
+                cur = ("float32" if m[2] == "f" else "float64") + (
+                    f"_kp{m[3]}_g{m[4]}" if m[1] == "reg" else "_block")
+        elif cur and "stack frame" in ln:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            out.setdefault(cur, {}).update(stack=int(m[1]), spill_stores=int(m[2]),
+                                           spill_loads=int(m[3]))
+        elif cur and "Used" in ln and "registers" in ln:
+            out.setdefault(cur, {})["registers"] = int(re.search(r"Used (\d+) registers", ln)[1])
+    return out
+
+
+def k2_layout_key(bl, lay, dtype):
+    name = str(dtype).split(".")[-1]
+    return f"{name}_kp{lay.kp}_g{lay.g}" if lay.tier == bl.TIER_REGISTER else f"{name}_block"
+
+
+def k2_layout_str(bl, lay):
+    if lay.tier == bl.TIER_REGISTER:
+        return (f"register(g={lay.g},kp={lay.kp},threads={lay.threads},grid={lay.grid},"
+                f"{'staged,smem=' + str(lay.smem_bytes) if lay.stage else 'direct'})")
+    return f"block(threads={lay.threads},grid={lay.grid},smem={lay.smem_bytes})"
+
+
+K2_SPEED_REPS = 7  # interleaved repetitions of the kernel's and the empty kernel's graphs
+
+
+def phase_k2_speed(torch, bl, card, other=None):
+    """K2's speed at each of ``K2_SPEED_SHAPES`` in both types, one
+    ``K2-speed`` line each: device ms from CUDA graphs of launches
+    (:func:`graph_ms`) and an empty kernel's device ms on K2's grid measured
+    the same way, ``K2_SPEED_REPS`` times each, interleaved (the medians,
+    and the median and range of their differences), host us a call
+    (:func:`host_us`), ms by CUDA events over back-to-back calls (the
+    measure of earlier PRs), ``torch.linalg.inv``'s ms (events), the bound,
+    the time before the redesign (``other``, the kernel of another checkout
+    timed here, or ``K2_MS_BEFORE``), the layout, and registers, stack and
+    spills of the instance.  Then the blocked recursion at (256,302,302)
+    float32 and a ``K2-resources`` line.  Returns the numbers by (B, k,
+    type name)."""
+    b = _build_mod()
+    lib = b.library()
+    res_regs = k2_resources(b.build_info.get("log", ""))
+    fmt = lambda r: (f"{r.get('registers')}/{r.get('stack')}/{r.get('spill_stores')}/"
+                     f"{r.get('spill_loads')}" if r else "not measured")
+    empty = lambda lay: lib.libmpc_empty_launch(lay.grid, lay.threads,
+                                                torch.cuda.current_stream().cuda_stream)
+    med = lambda v: float(np.median(v))
+    out = {}
+    for B, k in K2_SPEED_SHAPES:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            name = str(dtype).split(".")[-1]
+            key = f"{name}_B{B}_k{k}"
+            C = torch.as_tensor(spd_batch(B, k, seed=B + k), dtype=dtype, device="cuda")
+            lay = bl.layout(B, k, dtype)
+            n = 20 if B * k * k > 2 ** 20 else 100
+            call = lambda: bl.chol_inverse(C)
+            dev, emp = [], []
+            for _ in range(K2_SPEED_REPS):
+                dev.append(graph_ms(torch, call, n))
+                emp.append(graph_ms(torch, lambda: empty(lay), n))
+            over = [1e3 * (d - e) for d, e in zip(dev, emp)]
+            row = dict(device_ms=med(dev), empty_ms=med(emp), over_empty_us=med(over),
+                       over_empty_us_range=(min(over), max(over)),
+                       host_us=host_us(torch, call), ms=cuda_ms(torch, call, reps=20),
+                       library_ms=cuda_ms(torch, lambda: torch.linalg.inv(C), reps=10))
+            row["bound_ms"], row["bound_by"] = k2_bound_ms(B, k, C.element_size())
+            if other is not None:
+                ocall = lambda: other.chol_inverse(C)
+                require(_rel(ocall(), bl.chol_inverse_plain(C)) <= tol,
+                        f"the other checkout's K2 {key}")
+                before = (graph_ms(torch, ocall, n), host_us(torch, ocall))
+            else:
+                before = K2_MS_BEFORE.get(key)
+            phase("K2-speed", card=repr(card), shape=f"({B},{k},{k})", dtype=name,
+                  device_ms=f"{row['device_ms']:.5f}", host_us_per_call=f"{row['host_us']:.2f}",
+                  empty_kernel_device_ms=f"{row['empty_ms']:.5f}",
+                  over_empty_us=f"{row['over_empty_us']:.3f}",
+                  over_empty_us_range="{:.3f}..{:.3f}".format(*row["over_empty_us_range"]),
+                  reps=K2_SPEED_REPS, events_ms=f"{row['ms']:.5f}",
+                  library_ms=f"{row['library_ms']:.5f}",
+                  bound_ms=f"{row['bound_ms']:.5f}", bound_by=row["bound_by"],
+                  before_device_ms="not measured" if before is None else f"{before[0]:.5f}",
+                  before_host_us="not measured" if before is None else f"{before[1]:.2f}",
+                  before_from="this run" if other is not None else "K2_MS_BEFORE",
+                  layout=k2_layout_str(bl, lay),
+                  regs_stack_spill_st_ld=fmt(res_regs.get(k2_layout_key(bl, lay, dtype))))
+            out[(B, k, name)] = row
+    # the blocked recursion at the float32 dense interior point's oscillator size
+    Bb, kb = K2_BLOCKED_SHAPES[0]
+    C = torch.as_tensor(spd_batch(Bb, kb, seed=kb), dtype=torch.float32, device="cuda")
+    call = lambda: bl.chol_inverse_blocked(C)
+    blocked = dict(device_ms=graph_ms(torch, call, 10), host_us=host_us(torch, call, 50),
+                   ms=cuda_ms(torch, call, reps=10))
+    phase("K2-speed-blocked", card=repr(card), shape=f"({Bb},{kb},{kb})", dtype="float32",
+          device_ms=f"{blocked['device_ms']:.5f}", host_us_per_call=f"{blocked['host_us']:.2f}",
+          events_ms=f"{blocked['ms']:.5f}")
+    phase("K2-resources", regs_stack_spill_st_ld=";".join(
+        f"{k_}={fmt(v)}" for k_, v in sorted(res_regs.items())),
+          build_seconds=f"{b.build_info.get('seconds', 0.0):.1f}")
+    out["blocked"] = blocked
+    return out
+
+
+def phase_sweep_k2(torch, bl, card):
+    """``--sweep-k2``: at each register-tier shape of ``K2_SPEED_SHAPES`` in
+    both types, every other layout the library has forced (the other
+    register instances, staged and not, and the block tier), each checked
+    against the twin and timed as ``K2-speed`` times the layout's choice."""
+    for B, k in K2_SPEED_SHAPES:
+        if k > bl.REG_MAX_K:
+            continue
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            name = str(dtype).split(".")[-1]
+            C = torch.as_tensor(spd_batch(B, k, seed=B + k), dtype=dtype, device="cuda")
+            want = bl.chol_inverse_plain(C)
+            lay = bl.layout(B, k, dtype)
+            n = 20 if B * k * k > 2 ** 20 else 100
+            lays = [bl.register_layout(B, k, dtype, g=g, stage=st)
+                    for g in (1, 2, 4, 8, 16) for st in (False, True)]
+            forced = {}
+            for fl in [x for x in lays if x is not None] + [bl.block_layout(B, k, dtype)]:
+                require(_rel(bl.launch(fl, C), want) <= tol, f"K2 {name} ({B},{k}) {fl}")
+                fk = (f"g{fl.g}{'staged' if fl.stage else 'direct'}"
+                      if fl.tier == bl.TIER_REGISTER else "block")
+                forced[fk + ("(layout)" if fl == lay else "")] = graph_ms(
+                    torch, lambda: bl.launch(fl, C), n)
+            phase("K2-sweep", card=repr(card), shape=f"({B},{k},{k})", dtype=name,
+                  device_ms="/".join(f"{fk}:{v:.5f}" for fk, v in forced.items()))
+
+
+def phase_k2_ablate(torch, bl, card):
+    """``--k2-ablate``: where the register tier's time goes.  Copies of
+    ``csrc/chol_inverse.cu`` built with ``K2_ABLATE`` defined (1: loads and
+    stores, no passes; 2: loads and passes, no stores; 3: loads alone) are
+    timed beside the kernel (device ms, CUDA graphs) at each register-tier
+    shape of ``K2_SPEED_SHAPES`` in both types, at the layout's choice.
+    Diagnostic only: the path runs the kernel library."""
+    src = (_build_mod().CSRC / "chol_inverse.cu").read_text()
+    libs = {bits: variant_library("chol_inverse.cu", f"#define K2_ABLATE {bits}\n" + src,
+                                  f"ablate{bits}") for bits in (1, 2, 3)}
+    b = _build_mod()
+    for B, k in K2_SPEED_SHAPES:
+        if k > bl.REG_MAX_K:
+            continue
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            C = torch.as_tensor(spd_batch(B, k, seed=B + k), dtype=dtype, device="cuda")
+            out = torch.empty_like(C)
+            lay = bl.layout(B, k, dtype)
+            entry = "libmpc_chol_inverse_f32" if dtype == torch.float32 else "libmpc_chol_inverse_f64"
+            n = 20 if B * k * k > 2 ** 20 else 100
+            ms = {"all": graph_ms(torch, lambda: bl.launch(lay, C), n)}
+            for bits, lib in libs.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = b._SIGNATURES[entry]
+                fn.restype = int
+
+                def call():
+                    code = fn(C.data_ptr(), out.data_ptr(), B, k, lay.tier, lay.g, lay.threads,
+                              lay.stage, torch.cuda.current_stream().cuda_stream)
+                    require(code == 0, f"K2 variant {bits} launched ({code})")
+
+                ms[{1: "loads_stores", 2: "loads_passes", 3: "loads"}[bits]] = graph_ms(
+                    torch, call, n)
+            phase("K2-ablate", card=repr(card), shape=f"({B},{k},{k})", dtype=name,
+                  layout=k2_layout_str(bl, lay),
+                  **{f"device_ms_{key}": f"{v:.5f}" for key, v in ms.items()})
+
+
 def osc_engine(lt, sqp, c):
     """The inner engine ``ops/sqp.py`` routes this controller's solves to."""
     d = c.dims
@@ -2456,6 +2791,14 @@ def main(argv=None) -> int:
                     help="cycles of each barrier phase of K4 (an instrumented copy)")
     ap.add_argument("--k1-clocks", action="store_true",
                     help="cycles of each phase of a staged K1 block (an instrumented copy)")
+    ap.add_argument("--k2-before", type=Path, default=None, metavar="DIR",
+                    help="with k2: time another checkout's K2 (DIR, its root) beside this "
+                         "tree's in the K2-speed lines")
+    ap.add_argument("--k2-ablate", action="store_true",
+                    help="K2's register tier timed without its passes or its stores "
+                         "(copies built for it)")
+    ap.add_argument("--sweep-k2", action="store_true",
+                    help="every other K2 layout the library has, forced and timed")
     ap.add_argument("--sweep-k1", action="store_true",
                     help="with k1: the L2 probe, K1's tiers at more batches, every staged "
                          "tile and ring depth")
@@ -2489,6 +2832,10 @@ def main(argv=None) -> int:
         k2_err = phase_k2(torch, batched_linalg)
         k2_err.update(phase_k2_nlmpc(torch, batched_linalg))
         k2b_err = phase_k2_blocked(torch, batched_linalg)
+        k2_every = phase_k2_every_k(torch, batched_linalg)
+        k2_other = (load_other(opts.k2_before, "batched_linalg")
+                    if opts.k2_before is not None else None)
+        k2_speed = phase_k2_speed(torch, batched_linalg, card, k2_other)
     if "k3" in want:
         k3_err = phase_k3(torch, qpf)
         k3_speed = phase_k3_speed(torch, qpf, card)
@@ -2521,6 +2868,10 @@ def main(argv=None) -> int:
         phase_sweep_k3(torch, qpf)
     if opts.k1_clocks:
         phase_k1_clocks(torch, admm_fused)
+    if opts.sweep_k2:
+        phase_sweep_k2(torch, batched_linalg, card)
+    if opts.k2_ablate:
+        phase_k2_ablate(torch, batched_linalg, card)
     if opts.k3_clocks:
         phase_k3_clocks(torch, qpf)
     if opts.k4_clocks:
@@ -2548,6 +2899,12 @@ def main(argv=None) -> int:
         return {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": lib,
                 "bound_ms": rest[0] if rest else bound}
 
+    def k2_device(B, k):
+        row = k2_speed[(B, k, "float32")]
+        return {"device_ms": row["device_ms"], "host_us_per_call": row["host_us"],
+                "empty_kernel_device_ms": row["empty_ms"],
+                "over_empty_us": row["over_empty_us"]}
+
     osc_shape = f"B={B_OSC},ph={PH_O},bs={BS_O},bs_p={BSP_O},w={W_O},float32"
     kernels = [
         entry("admm_fused", "libmpc_tpu_torch/csrc/admm_fused.cu",
@@ -2559,12 +2916,18 @@ def main(argv=None) -> int:
         entry("chol_inverse", "libmpc_tpu_torch/csrc/chol_inverse.cu",
               "libmpc_tpu/ops/batched_linalg.py:110", k2_err["float32"],
               shape=f"({B_MAIN},24,24),float32",
-              at_nlmpc_shape=at_shape(f"({B_NL},{ME_NL},{ME_NL}),float32", "k2_nlmpc",
-                                      k2_bound_ms(B_NL, ME_NL)[0]),
+              layout=k2_layout_str(batched_linalg,
+                                   batched_linalg.layout(B_MAIN, 24, torch.float32)),
+              **k2_device(B_MAIN, 24), max_abs_err_every_k_float32=k2_every,
+              at_nlmpc_shape=dict(at_shape(f"({B_NL},{ME_NL},{ME_NL}),float32", "k2_nlmpc",
+                                           k2_bound_ms(B_NL, ME_NL)[0]),
+                                  **k2_device(B_NL, ME_NL)),
               at_osc_shape=dict(at_shape(f"({B_OSC},{W_O},{W_O}),float32", "k2_osc"),
-                                max_abs_err=k2_err["osc_float32"]),
+                                max_abs_err=k2_err["osc_float32"], **k2_device(B_OSC, W_O)),
               blocked=dict(at_shape("({0},{1},{1}),float32".format(*K2_BLOCKED_SHAPES[0]),
                                     "k2_blocked"),
+                           device_ms=k2_speed["blocked"]["device_ms"],
+                           host_us_per_call=k2_speed["blocked"]["host_us"],
                            replaces="libmpc_tpu/ops/batched_linalg.py:125",
                            max_abs_err=k2b_err["float32"])),
         entry("qp_inner", "libmpc_tpu_torch/csrc/qp_inner.cu",

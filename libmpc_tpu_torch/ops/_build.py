@@ -52,9 +52,13 @@ _SIGNATURES = {
     # refine tier bt stages stream (At null where the layout is staged)
     "libmpc_admm_fused_f32": [_P] * 15 + [_I] * 4 + [_D, _D, _I, _I, _I, _I, _P],
     "libmpc_admm_fused_f64": [_P] * 15 + [_I] * 4 + [_D, _D, _I, _I, _I, _I, _P],
-    # C out B k stream
-    "libmpc_chol_inverse_f32": [_P, _P, _I, _I, _P],
-    "libmpc_chol_inverse_f64": [_P, _P, _I, _I, _P],
+    # C out B k tier g threads stage stream
+    "libmpc_chol_inverse_f32": [_P, _P] + [_I] * 6 + [_P],
+    "libmpc_chol_inverse_f64": [_P, _P] + [_I] * 6 + [_P],
+    # f64 B k tier g threads stage out[3]: the launch a layout gives (no launch)
+    "libmpc_chol_inverse_plan": [_I] * 7 + [_P],
+    # grid threads stream: a kernel that does nothing (a launch's yardstick)
+    "libmpc_empty_launch": [_I, _I, _P],
     # P A q l u rho x0 y0 dinv einv cinv | xo yo zo iters done pri dua |
     # B n m | sigma alpha eps_abs eps_rel | n_blocks check_every refine warps |
     # stream

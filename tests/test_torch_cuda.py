@@ -210,6 +210,160 @@ def test_chol_inverse_kernel_matches_twin(cuda, dtype, tol):
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
 
 
+_K2_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+_K2_RESID = {torch.float32: 1e-3, torch.float64: 1e-8}
+
+
+def _k2_spd(B, k, dtype, device, seed=0):
+    return torch.as_tensor(chip_smoke.spd_batch(B, k, seed), dtype=dtype, device=device)
+
+
+def _k2_layouts(B, k, dtype):
+    """The layout's choice, then every other layout that applies: the block
+    tier and each register instance for k <= 32, staged and not."""
+    lays = [batched_linalg.layout(B, k, dtype)]
+    if k <= batched_linalg.REG_MAX_K:
+        for g in (1, 2, 4, 8, 16):
+            for stage in (False, True):
+                lay = batched_linalg.register_layout(B, k, dtype, g=g, stage=stage)
+                if lay is not None and lay not in lays:
+                    lays.append(lay)
+        lays.append(batched_linalg.block_layout(B, k, dtype))
+    return lays
+
+
+def _k2_check(C, got, dtype, what):
+    want = batched_linalg.chol_inverse_plain(C)
+    k = C.shape[-1]
+    eye = torch.eye(k, dtype=torch.float64, device=C.device)
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    resid = (C.double() @ got.double() - eye).abs().max().item()
+    assert rel <= _K2_TOL[dtype], (what, rel)
+    assert resid <= _K2_RESID[dtype], (what, resid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_inverse_every_k_and_every_layout(cuda, dtype):
+    """Every k from 1 to 64 on a ragged batch of 37, at the layout's choice
+    and with each other layout that applies forced (the block tier and the
+    other register instances for k <= 32)."""
+    for k in range(1, batched_linalg.MAX_K + 1):
+        C = _k2_spd(37, k, dtype, cuda, seed=k)
+        for lay in _k2_layouts(37, k, dtype):
+            got = batched_linalg.launch(lay, C)
+            torch.cuda.synchronize()
+            _k2_check(C, got, dtype, (k, lay))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 20, 24, 48, 61])
+@pytest.mark.parametrize("B", [1, 3, 37, 1001, "blocks"])
+def test_chol_inverse_batches(cuda, dtype, k, B):
+    """Batches of 1, 3, 37, 1001 and a whole number of blocks (eight blocks
+    of the register tier's 128 threads; 64 matrices in the block tier)."""
+    if B == "blocks":
+        lay = batched_linalg.layout(4096, k, dtype)
+        B = 8 * (lay.threads // lay.g) if lay.tier == batched_linalg.TIER_REGISTER else 64
+    C = _k2_spd(B, k, dtype, cuda, seed=B + k)
+    launches = batched_linalg.chol_inverse.launches
+    got = batched_linalg.chol_inverse(C)
+    torch.cuda.synchronize()
+    assert batched_linalg.chol_inverse.launches == launches + 1
+    _k2_check(C, got, dtype, (B, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [4, 8, 20, 24, 32, 61])
+def test_chol_inverse_unaligned_input_takes_the_scalar_path(cuda, dtype, k):
+    """C one element into a larger buffer (its rows no longer 16-byte
+    aligned): the element-by-element path, at every layout that applies."""
+    C = chip_smoke.unaligned_copy(torch, _k2_spd(37, k, dtype, cuda, seed=k), offset=1)
+    assert C.data_ptr() % 16 != 0 and C.is_contiguous()
+    for lay in _k2_layouts(37, k, dtype):
+        got = batched_linalg.launch(lay, C)
+        torch.cuda.synchronize()
+        _k2_check(C, got, dtype, lay)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 20, 24, 48, 61])
+def test_chol_inverse_nan_lane_stays_apart(cuda, dtype, k):
+    """A NaN pivot and a symmetric NaN pair below it: those two matrices
+    come back NaN; the others equal a run without them bitwise."""
+    C = _k2_spd(37, k, dtype, cuda, seed=7)
+    bad = C.clone()
+    bad[5, 2, 2] = float("nan")
+    bad[9, 3, 1] = bad[9, 1, 3] = float("nan")
+    keep = [b for b in range(37) if b not in (5, 9)]
+    for lay in _k2_layouts(37, k, dtype):
+        clean = batched_linalg.launch(lay, C)
+        got = batched_linalg.launch(lay, bad)
+        torch.cuda.synchronize()
+        assert torch.isnan(got[5]).all() and torch.isnan(got[9]).all(), lay
+        assert torch.equal(got[keep], clean[keep]), lay
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_inverse_launcher_refuses_a_layout_that_does_not_apply(cuda, dtype):
+    L, R, BL = batched_linalg.Layout, batched_linalg.TIER_REGISTER, batched_linalg.TIER_BLOCK
+    C24 = _k2_spd(5, 24, dtype, cuda)
+    C40 = _k2_spd(5, 40, dtype, cuda)
+    refused = [(C40, L(R, 8, 40, 128, 1, 0, 0)),  # the register tier takes k <= 32
+               (C24, L(R, 3, 24, 96, 1, 0, 0)),  # g not a power of two
+               (C24, L(R, 2, 24, 128, 1, 0, 0)),  # no (24, 2) instance
+               (C24, L(R, 4, 24, 128, 1, 0, 0)),  # no (24, 4) instance either
+               (C24, L(R, 8, 24, 256, 1, 0, 0)),  # over 128 threads
+               (C24, L(R, 8, 24, 48, 1, 0, 0)),  # not whole warps
+               (C24, L(R, 8, 24, 128, 1, 2, 0)),  # stage is 0 or 1
+               (C24, L(BL, 4, 24, 128, 5, 0, 0)),  # the block tier takes g = 0
+               (C24, L(BL, 0, 24, 128, 5, 1, 0)),  # and stages nothing
+               (C24, L(BL, 0, 24, 32, 5, 0, 0)),  # one warp cannot pipeline its pivots
+               (C24, L(2, 0, 24, 128, 5, 0, 0))]  # no such tier
+    launches = batched_linalg.chol_inverse.launches
+    for C, lay in refused:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            batched_linalg.launch(lay, C)
+    assert batched_linalg.chol_inverse.launches == launches
+    empty = batched_linalg.chol_inverse(torch.empty((0, 24, 24), dtype=dtype, device=cuda))
+    assert empty.shape == (0, 24, 24) and batched_linalg.chol_inverse.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_inverse_layout_rules_equal_the_librarys(cuda, dtype):
+    """Python's layout rules (``register_layout``'s instances, padding,
+    grid and ``stage_stride``; ``block_smem_bytes``) give what the library's
+    own check gives (``libmpc_chol_inverse_plan``) for every k, lane count,
+    thread count and staging, at several batches: a layout Python refuses
+    the library refuses, and the other way round."""
+    import ctypes
+
+    from libmpc_tpu_torch.ops import _build
+
+    plan = _build.library().libmpc_chol_inverse_plan
+    out = (ctypes.c_longlong * 3)()
+    f64 = int(dtype == torch.float64)
+
+    def library(B, k, tier, g, threads, stage):
+        code = plan(f64, B, k, tier, g, threads, stage, ctypes.addressof(out))
+        return None if code != 0 else (out[0], out[1], out[2])
+
+    for B in (1, 37, 1001, 16384):
+        for k in range(1, batched_linalg.MAX_K + 1):
+            for g in (1, 2, 4, 8, 16, 32):
+                for threads in (32, 64, 128):
+                    for stage in (False, True):
+                        lay = (batched_linalg.register_layout(B, k, dtype, g=g, threads=threads,
+                                                              stage=stage)
+                               if k <= batched_linalg.REG_MAX_K else None)
+                        want = None if lay is None else (lay.kp, lay.grid, lay.smem_bytes)
+                        got = library(B, k, batched_linalg.TIER_REGISTER, g, threads, int(stage))
+                        assert got == want, (B, k, g, threads, stage)
+            for threads in (64, 128, 256):
+                lay = batched_linalg.block_layout(B, k, dtype, threads=threads)
+                got = library(B, k, batched_linalg.TIER_BLOCK, 0, threads, 0)
+                assert got == (lay.kp, lay.grid, lay.smem_bytes), (B, k, threads)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="k <= 64"):
         batched_linalg.chol_inverse(torch.eye(65, device=cuda).expand(2, 65, 65).contiguous())
