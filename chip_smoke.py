@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's three main paths after building the five hand-written CUDA
+Drives the port's four main paths after building the five hand-written CUDA
 kernels from ``libmpc_tpu_torch/csrc`` and holding each against its plain
 PyTorch twin on the card:
 
@@ -15,7 +15,13 @@ PyTorch twin on the card:
   examples/networked_oscillators_ex.cpp (nx=12, nu=6, ph=20, ch=10, nz=301)
   through ``nlmpc_rollout`` (B=1024 lanes, 8 steps, float32, the shipped
   two-phase settings): its ``inner_qp="fused"`` request is past the fused
-  kernel's gate and runs the banded-KKT interior point.
+  kernel's gate and runs the banded-KKT interior point;
+* the UGV obstacle-avoidance NLMPC closed loop of examples/ugv_ex.cpp (nx=4,
+  nu=2, ph=ch=10, two obstacles, nz=61) through ``nlmpc_rollout`` (B=256
+  lanes, 150 steps as five chained 30-step rollouts, float32, the shipped
+  ``inner_qp="admm"``, ``hessian_reg="eigh"`` settings): the per-instance
+  inner ADMM, whose KKT inverses, polish capacitances and second-order
+  corrections go through K2.
 
 Phases, one line each (any failure raises and the script exits non-zero):
 
@@ -54,11 +60,19 @@ Phases, one line each (any failure raises and the script exits non-zero):
     lanes, success fraction at B=1024 and at B=256 and 512
 14. oscillator accuracy at matched states: float64 riccati against float64
     pdip on the card, then float32 against that
-15. times: kernels, twins and library calls with CUDA events, each kernel's
+15. UGV main path, float32: the closed loop through K2, its launches by
+    shape, SQP and inner-ADMM iteration statistics, avoid/goal/success
+    fractions (gated: avoid 1.0, success >= 0.99) beside the float64
+    oracle's and the JAX package's TPU record, host reads and K2 launches a
+    step; the per-instance engine in float64 on the first SQP iteration's
+    QPs, K2 against its twin substituted (statuses and iterations equal, x
+    within 1e-9); K2 against its twin and timed at (256,61,61), (256,40,40),
+    (256,24,24) in both types
+16. times: kernels, twins and library calls with CUDA events, each kernel's
     bound, steady-state and closed-loop solves/s of the three paths
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
+ugv times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
 ``K1-speed`` line with its time at the main path's batches in both types,
 each tier forced, the bound, the layout, the L2 bytes a launch and their
 rate, registers and spills (``--sweep-k1`` adds a ``K1-sweep`` line: the
@@ -79,7 +93,8 @@ register tier without its passes or its stores),
 ``--profile`` adds a ``torch.profiler`` breakdown of the loops whose
 phases run (``lmpc``: the quadrotor; ``nlmpc``: Van der Pol; ``osc``: the
 oscillators, and the oscillator rollout's idle share from one traced
-window), ``--k1-clocks`` counts the cycles of each phase of a staged K1
+window; ``ugv``: kernel launches a step and the idle share of a two-step
+UGV window), ``--k1-clocks`` counts the cycles of each phase of a staged K1
 block, ``--sweep-k3`` times K3 for several warps per block, ``--k3-clocks`` counts
 the cycles of each phase of K3's register tier and ``--k4-clocks`` those of
 each barrier phase of K4; with no arguments every
@@ -92,8 +107,8 @@ It needs one CUDA card and the CUDA toolkit (nvcc); it imports neither JAX
 nor the JAX package.  The quadrotor setup restates
 ``__graft_entry__.py:26-78`` and the closed-loop inputs and settings restate
 ``bench.py:268-300``; the Van der Pol setup, inputs and plant restate
-``bench.py:437-480`` and the oscillators' ``bench.py:562-620`` (these files
-import JAX, so they are not imported).
+``bench.py:437-480``, the oscillators' ``bench.py:562-620`` and the UGV's
+``bench.py:672-822`` (these files import JAX, so they are not imported).
 """
 
 from __future__ import annotations
@@ -2774,7 +2789,311 @@ def phase_times_osc(torch, lt, tk, host, mods, ts, batched_linalg, card, main_wa
             "k2_blocked": (kb_ms, kb_plain, kb_lib, kb_bound)}
 
 
-PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "times")
+# -- the UGV obstacle avoidance of examples/ugv_ex.cpp (bench.py:672-822) ----
+B_UGV, K_UGV, CHUNK_UGV = 256, 150, 30
+NZ_U, ME_U, MI_U = 61, 40, 22  # nz = 10 (nx + nu) + 1 slack; me = ph nx; mi = (ph + 1) 2
+M_U = ME_U + MI_U + NZ_U  # 123 rows of the inner QP
+UGV_K2_SHAPES = ((B_UGV, NZ_U), (B_UGV, ME_U), (B_UGV, 24))  # KKT, correction, capacitance
+# the JAX package's float32 run on a TPU (BENCH_r05.json): its behaviour record,
+# not this port's target
+UGV_TPU_RECORD = {"goal_frac": 0.5, "avoid_frac": 1.0, "success_frac": 0.9996}
+UGV_INNER_CAP_F32 = 500  # _qp_params(f32).maximum_iteration: 20 blocks of 25
+
+
+def ugv_setup(torch, lt, dtype, B, device="cuda"):
+    """bench.py:672-745 (``_make_ugv``): the batched UGV controller with its
+    shipped float32 fleet settings (``inner_qp="admm"``, ``hessian_reg=
+    "eigh"``), the per-lane velocity reference toward the goal recomputed
+    from the state each step (``params_fn``), the plant, and the starts of
+    ``default_rng(21)``."""
+    kw = dict(dtype=dtype, device=device)
+    A = np.zeros((4, 4))
+    A[0:2, 2:4] = np.eye(2)
+    Bm = np.zeros((4, 2))
+    Bm[2:4, 0:2] = np.eye(2)
+    Ad, Bd = (M.to(**kw) for M in lt.discretization(A, Bm, 0.1))
+    obstacles = torch.tensor([[2.0, 1.0], [1.0, 1.0]], **kw)
+    radii = torch.tensor([0.3, 0.3], **kw)
+    yref = torch.tensor([2.0, 2.0], **kw)
+    ph = 10
+    c = lt.NLMPC(4, 2, 4, ph, ph, (ph + 1) * 2, 0, **kw)
+    c.set_state_space_function(lambda x, u, k: Ad @ x + Bd @ u)
+    c.set_output_function(lambda x, u, k: x)
+
+    def objective(X, Y, U, e, p):
+        v_err = X[:, 2:4] - p["v_pref"][None, :]
+        return 1e3 * torch.sum(v_err ** 2) + 1e-2 * torch.sum(U ** 2) + 1e-5 * e * e
+
+    def ineq(X, Y, U, e):
+        d = torch.sqrt(torch.sum((X[:, None, 0:2] - obstacles[None, :, :]) ** 2, dim=-1))
+        return (radii[None, :] - d).reshape(-1)
+
+    c.set_objective_function(objective)
+    c.set_ineq_con_function(ineq)
+    c.set_runtime_params({"v_pref": torch.zeros((B, 2), **kw)}, batched=True)
+    c.set_optimizer_parameters(lt.NLParameters(
+        maximum_iteration=200, hard_constraints=False, enable_warm_start=True,
+        inner_qp="admm", hessian_reg="eigh", relative_ftol=1e-6,
+        cold_restart_on_failure=True))
+
+    def params_fn(x, k):
+        v = yref[None, :] - x[:, 0:2]
+        return {"v_pref": v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                                          min=1e-9)}
+
+    def plant(x, u, k):
+        return x @ Ad.T + u @ Bd.T
+
+    rng = np.random.default_rng(21)
+    x0 = torch.as_tensor(np.concatenate([0.2 * rng.normal(size=(B, 2)), np.zeros((B, 2))],
+                                        axis=1), **kw)
+    return c, plant, params_fn, x0, (obstacles, radii, yref)
+
+
+def run_ugv(torch, lt, c, plant, params_fn, x0, K, chunk=CHUNK_UGV):
+    """bench.py:752-781: the closed loop as ``nlmpc_rollout`` calls of
+    ``chunk`` steps chained at the host (state and last command carried; the
+    warm start restarts cold at each chunk's first step).  Returns states
+    (B, K+1, 4), inputs, statuses and SQP iterations (B, K)."""
+    x, u = x0, torch.zeros((x0.shape[0], 2), dtype=x0.dtype, device=x0.device)
+    pieces = []
+    for n in [chunk] * (K // chunk) + ([K % chunk] if K % chunk else []):
+        r = lt.nlmpc_rollout(c, plant, x, u, n, params_fn=params_fn)
+        pieces.append(r)
+        x, u = r.states[:, -1], r.inputs[:, -1]
+    torch.cuda.synchronize()
+    states = torch.cat([p.states[:, :-1] for p in pieces] + [pieces[-1].states[:, -1:]], dim=1)
+    cat = lambda f: torch.cat([getattr(p, f) for p in pieces], dim=1).cpu().numpy()
+    return states.cpu().numpy(), cat("inputs"), cat("statuses"), cat("iterations")
+
+
+def ugv_fractions(states, statuses, geometry):
+    """bench.py:806-822: goal reached (final position within 0.05 of the
+    goal), obstacles avoided (closest approach at least r - 1e-2) and solve
+    success, each as a fraction of the lanes (success of the lane-steps)."""
+    obstacles, radii, yref = (np.asarray(g.cpu() if hasattr(g, "cpu") else g) for g in geometry)
+    pos = states[:, :, 0:2]
+    goal = np.linalg.norm(pos[:, -1] - yref, axis=-1) < 0.05
+    dmin = np.linalg.norm(pos[:, :, None, :] - obstacles[None, None], axis=-1).min(axis=(1, 2))
+    return {"goal_frac": float(goal.mean()),
+            "avoid_frac": float((dmin >= float(radii[0]) - 1e-2).mean()),
+            "success_frac": float((statuses == 0).mean())}
+
+
+def ugv_oracle_fractions():
+    """The float64 oracle's fractions (misc/results/ugv_closed_loop_ref_f64.npz:
+    B = 32, gauss_newton curvature with the dense interior point, the same
+    30-step chunks), read with numpy."""
+    ref = np.load(ROOT / "misc" / "results" / "ugv_closed_loop_ref_f64.npz")
+    geometry = (np.array([[2.0, 1.0], [1.0, 1.0]]), np.array([0.3, 0.3]), np.array([2.0, 2.0]))
+    return int(ref["B"]), ugv_fractions(ref["states"], ref["statuses"], geometry)
+
+
+def k2_by_shape(trace):
+    """K2 launches grouped by (k, dtype), with the mean batch of each: the
+    per-instance engine gathers the lanes still running, so B varies."""
+    out = {}
+    for B, k, dtype in trace:
+        key = f"{k}x{k},{str(dtype).split('.')[-1]}"
+        n, tot = out.get(key, (0, 0))
+        out[key] = (n + 1, tot + B)
+    return {key: {"launches": n, "mean_B": round(tot / n, 1)} for key, (n, tot) in out.items()}
+
+
+def phase_main_ugv(torch, lt, admm, batched_linalg, host, mods):
+    """The fourth main path: the UGV closed loop at the shipped float32
+    configuration, B = 256 x 150 steps as five chained 30-step rollouts,
+    through the per-instance inner ADMM (K2 at its three shapes)."""
+    c, plant, params_fn, x0, geometry = ugv_setup(torch, lt, torch.float32, B_UGV)
+    reset_counts(*mods)
+    batched_linalg.chol_inverse.trace, admm.admm_solve_each.trace = [], []
+    host.flag.reads = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, inputs, statuses, iters = run_ugv(torch, lt, c, plant, params_fn, x0, K_UGV)
+    wall = time.perf_counter() - t0
+    launches = read_counts(*mods)
+    reads = host.flag.reads
+    shapes = k2_by_shape(batched_linalg.chol_inverse.trace)
+    inner = admm.admm_solve_each.trace
+    batched_linalg.chol_inverse.trace = admm.admm_solve_each.trace = None
+    inner_iters = torch.cat([it for it, _ in inner]).cpu().numpy()
+    frac = ugv_fractions(states, statuses, geometry)
+    B0, oracle = ugv_oracle_fractions()
+    require(states.shape == (B_UGV, K_UGV + 1, 4) and inputs.shape == (B_UGV, K_UGV, 2),
+            "UGV states (B, K+1, 4) and inputs (B, K, 2)")
+    require(bool(np.isfinite(inputs).all()), "UGV commands finite")
+    mix = {lt.ResultStatus(int(v)).name: int(n)
+           for v, n in zip(*np.unique(statuses, return_counts=True))}
+    phase("main-ugv", dtype="float32", B=B_UGV, steps=K_UGV, chunks=f"{K_UGV // CHUNK_UGV}x{CHUNK_UGV}",
+          goal_frac=f"{frac['goal_frac']:.4f}", avoid_frac=f"{frac['avoid_frac']:.4f}",
+          success_frac=f"{frac['success_frac']:.6f}",
+          status_mix=json.dumps(mix).replace(" ", ""),
+          sqp_iters_mean=f"{iters.mean():.3f}", sqp_iters_max=int(iters.max()),
+          inner_solves=len(inner), inner_lane_solves=inner_iters.size,
+          inner_admm_iters_mean=f"{inner_iters.mean():.1f}",
+          inner_at_cap_frac=f"{(inner_iters >= UGV_INNER_CAP_F32).mean():.4f}",
+          inner_admm_iters=hist25(inner_iters),
+          launches_chol_inverse=launches["chol_inverse"],
+          k2_launches_per_step=f"{launches['chol_inverse'] / K_UGV:.1f}",
+          k2_by_shape=json.dumps(shapes).replace(" ", ""),
+          host_reads=reads, host_reads_per_step=f"{reads / K_UGV:.1f}",
+          wall_s=f"{wall:.3f}", wall_ms_per_step=f"{1e3 * wall / K_UGV:.1f}",
+          solves_per_s=f"{B_UGV * K_UGV / wall:.1f}")
+    phase("ugv-references", oracle_f64_B=B0,
+          oracle_goal_frac=f"{oracle['goal_frac']:.4f}",
+          oracle_avoid_frac=f"{oracle['avoid_frac']:.4f}",
+          oracle_success_frac=f"{oracle['success_frac']:.4f}",
+          tpu_reference_record="BENCH_r05.json(the_JAX_package_on_a_TPU,float32,B=256)",
+          **{f"tpu_{k}": v for k, v in UGV_TPU_RECORD.items()})
+    require(launches["chol_inverse"] > 0, "UGV main path launched K2")
+    require(frac["avoid_frac"] == 1.0, f"UGV avoid fraction {frac['avoid_frac']} == 1.0")
+    require(frac["success_frac"] >= 0.99, f"UGV success fraction {frac['success_frac']} >= 0.99")
+    return launches, wall, dict(frac, sqp_iters_mean=float(iters.mean()),
+                                inner_iters_mean=float(inner_iters.mean()), k2_by_shape=shapes)
+
+
+def ugv_first_qps(torch, lt, admm):
+    """The inner QPs (B = 256, n = 61, m = 123) that the loop's first SQP
+    iteration builds: the first step's solve, stopped after one SQP
+    iteration, with the engine's arguments kept."""
+    import dataclasses
+
+    c, _plant, params_fn, x0, _ = ugv_setup(torch, lt, torch.float32, B_UGV)
+    c.set_optimizer_parameters(dataclasses.replace(c._params, maximum_iteration=1))
+    c.set_runtime_params(params_fn(x0, 0), batched=True)
+    kept = []
+    each = admm.admm_solve_each
+
+    def keep(*args, **kw):
+        kept.append((args, kw))
+        return each(*args, **kw)
+
+    keep.trace = None
+    admm.admm_solve_each = keep
+    try:
+        c.optimize(x0, torch.zeros((B_UGV, 2), dtype=torch.float32, device="cuda"))
+    finally:
+        admm.admm_solve_each = each
+    return kept[0]
+
+
+def phase_ugv_engine_f64(torch, lt, admm, batched_linalg, sqp):
+    """The per-instance engine in float64 on the card at the UGV shape: the
+    first SQP iteration's QPs solved twice, through K2 and with
+    ``batched_linalg``'s plain twin substituted for K2 inside this check
+    only.  Statuses and iteration counts equal lane by lane, x within 1e-9
+    as the CPU parity tests hold it (``allclose``: 1e-9 + 1e-9 |x| an
+    entry; the directions reach |x| = 7, and the polish leaves each at the
+    accuracy its six refinement passes reach, 1e-11 to 1e-9 apart between
+    two inverses that round differently)."""
+    (P, A, q, l, u), kw = ugv_first_qps(torch, lt, admm)
+    d = lambda t: t.double()
+    args = [d(t) for t in (P, A, q, l, u)]
+    kw = dict(params=sqp._qp_params(False), eq_mask=kw["eq_mask"],
+              warm_x=d(kw["warm_x"]), warm_y=d(kw["warm_y"]))
+    require(tuple(A.shape) == (B_UGV, M_U, NZ_U), f"UGV inner QP shape {tuple(A.shape)}")
+    before = batched_linalg.chol_inverse.launches
+    sol_k = admm.admm_solve_each(*args, **kw)
+    n_kernel = batched_linalg.chol_inverse.launches - before
+    kernel = batched_linalg.chol_inverse
+    batched_linalg.chol_inverse = batched_linalg.chol_inverse_plain
+    try:
+        sol_t = admm.admm_solve_each(*args, **kw)
+    finally:
+        batched_linalg.chol_inverse = kernel
+    torch.cuda.synchronize()
+    same_status = bool(torch.equal(sol_k.status, sol_t.status))
+    same_iters = bool(torch.equal(sol_k.iters, sol_t.iters))
+    err = (sol_k.x - sol_t.x).abs().max().item()
+    ratio = ((sol_k.x - sol_t.x).abs() / (1e-9 + 1e-9 * sol_t.x.abs())).max().item()
+    st = sol_k.status.cpu().numpy()
+    phase("ugv-f64-engine", shape=f"B={B_UGV},n={NZ_U},m={M_U},float64",
+          k2_launches=n_kernel, statuses_equal=same_status, iters_equal=same_iters,
+          x_max_abs_err=f"{err:.3e}", x_err_over_tol=f"{ratio:.3f}", tol="1e-9+1e-9|x|",
+          iters_mean=f"{sol_k.iters.float().mean().item():.1f}",
+          iters_max=int(sol_k.iters.max()),
+          status_mix=json.dumps({int(v): int(n) for v, n in
+                                 zip(*np.unique(st, return_counts=True))}).replace(" ", ""),
+          lanes_differing_iters=int((sol_k.iters != sol_t.iters).sum()))
+    require(n_kernel > 0, "the float64 engine check launched K2")
+    require(same_status and same_iters, "UGV float64 engine: K2 and twin statuses and iterations equal")
+    require(ratio <= 1.0, f"UGV float64 engine: K2 and twin x within 1e-9 + 1e-9|x| "
+                          f"(max abs {err:.3e}, {ratio:.3f} of the tolerance)")
+
+
+def phase_k2_ugv(torch, batched_linalg, card):
+    """K2 against its twin at the UGV path's three shapes (the KKT inverse
+    (256,61,61) in its block tier, the second-order correction (256,40,40),
+    the polish capacitance (256,24,24)) in both types, with the kernel's time
+    from CUDA graphs of launches (``graph_ms``), the twin's and
+    ``torch.linalg.inv``'s from events, and the bound.  Returns the rows of
+    the kernels line."""
+    rows = []
+    for B, k in UGV_K2_SHAPES:
+        for dtype, tol, elem in ((torch.float32, 1e-4, 4), (torch.float64, 1e-10, 8)):
+            C = torch.as_tensor(spd_batch(B, k, seed=k), dtype=dtype, device="cuda")
+            inv_k = batched_linalg.chol_inverse(C)
+            inv_t = batched_linalg.chol_inverse_plain(C)
+            torch.cuda.synchronize()
+            absmax = (inv_k - inv_t).abs().max().item()
+            rel = absmax / inv_t.abs().max().item()
+            name = str(dtype).split(".")[-1]
+            lay = batched_linalg.layout(B, k, dtype)
+            ms = graph_ms(torch, lambda: batched_linalg.chol_inverse(C))
+            plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(C), reps=20)
+            lib = cuda_ms(torch, lambda: torch.linalg.inv(C), reps=20)
+            bound, by = k2_bound_ms(B, k, elem)
+            phase("K2-ugv", card=repr(card), dtype=name, shape=f"({B},{k},{k})",
+                  tier="register" if lay.tier == batched_linalg.TIER_REGISTER else "block",
+                  rel_err=f"{rel:.3e}", max_abs_err=f"{absmax:.3e}", tol=tol,
+                  ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}", library_ms=f"{lib:.5f}",
+                  bound_ms=f"{bound:.6f}", bound_by=by,
+                  slower_than_library=ms > lib)
+            require(rel <= tol, f"K2 {name} ({B},{k},{k}) within {tol} of its twin")
+            rows.append({"shape": f"({B},{k},{k}),{name}", "ms": ms, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                         "max_abs_err": absmax})
+    return rows
+
+
+def phase_profile_ugv(torch, lt, host, steps=2):
+    """``--profile``: the UGV loop's kernel launches a step and the device's
+    idle share, from one window of ``steps`` steps through ``nlmpc_rollout``
+    from a cold start, traced for device activity only, after the same
+    window untraced (the tracing's cost beside the share it was measured
+    under).  A step is about 10^5 kernels: the profiler's records of a
+    longer window take minutes to read back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window():
+        c, plant, params_fn, x0, _ = ugv_setup(torch, lt, torch.float32, B_UGV)
+        host.flag.reads = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = lt.nlmpc_rollout(c, plant, x0, torch.zeros((B_UGV, 2), dtype=torch.float32,
+                                                       device="cuda"), steps,
+                             params_fn=params_fn)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, host.flag.reads, r
+
+    plain_wall, _, _ = window()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall, reads, r = window()
+    fam, count = device_ms_by_family(prof)
+    busy = sum(fam.values()) / 1e3
+    phase("profile-ugv-rollout", B=B_UGV, steps=steps, wall_s_traced=f"{wall:.3f}",
+          wall_s_untraced=f"{plain_wall:.3f}", tracing_slowdown=f"{wall / plain_wall:.3f}",
+          device_busy_s=f"{busy:.3f}", idle_share_traced=f"{1 - busy / wall:.3f}",
+          idle_share_against_untraced_wall=f"{1 - busy / plain_wall:.3f}",
+          kernel_launches_per_step=f"{count / steps:.0f}",
+          host_reads_per_step=f"{reads / steps:.1f}",
+          sqp_iters_mean=f"{r.iterations.float().mean().item():.2f}",
+          **{k.replace(" ", "_"): f"{v / steps:.1f}ms_per_step"
+             for k, v in fam.items() if v > 0})
+
+
+PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "ugv", "times")
 
 
 def main(argv=None) -> int:
@@ -2857,6 +3176,10 @@ def main(argv=None) -> int:
     if "osc" in want:
         launches_osc, wall_osc = phase_main_osc(torch, lt, tk, sqp, qpf, host, mods)
         osc_err = phase_matched_osc(torch, lt, sqp)
+    if "ugv" in want:
+        launches_ugv, _, ugv_sum = phase_main_ugv(torch, lt, admm, batched_linalg, host, mods)
+        phase_ugv_engine_f64(torch, lt, admm, batched_linalg, sqp)
+        k2_ugv = phase_k2_ugv(torch, batched_linalg, card)
     if opts.profile and "lmpc" in want:
         phase_profile_lmpc(torch, lt, host)
     if opts.profile and "nlmpc" in want:
@@ -2864,6 +3187,8 @@ def main(argv=None) -> int:
     if opts.profile and "osc" in want:
         phase_profile_osc(torch, lt, host)
         phase_profile_osc_rollout(torch, lt, tk, host, mods)
+    if opts.profile and "ugv" in want:
+        phase_profile_ugv(torch, lt, host)
     if opts.sweep_k3:
         phase_sweep_k3(torch, qpf)
     if opts.k1_clocks:
@@ -2885,7 +3210,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: ran only {sorted(want)}; no result line", flush=True)
         return 0
 
-    paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc}
+    paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc, "ugv": launches_ugv}
 
     def entry(name, source, replaces, err, **extra):
         ms, plain, bound, by, lib = times[name]
@@ -2929,7 +3254,8 @@ def main(argv=None) -> int:
                            device_ms=k2_speed["blocked"]["device_ms"],
                            host_us_per_call=k2_speed["blocked"]["host_us"],
                            replaces="libmpc_tpu/ops/batched_linalg.py:125",
-                           max_abs_err=k2b_err["float32"])),
+                           max_abs_err=k2b_err["float32"]),
+              at_ugv_shapes=k2_ugv, launches_ugv_by_shape=ugv_sum["k2_by_shape"]),
         entry("qp_inner", "libmpc_tpu_torch/csrc/qp_inner.cu",
               "libmpc_tpu/ops/qp_inner_pallas.py:362", k3_err["float32"],
               shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32", tier=k3_speed["tier"],
@@ -2943,6 +3269,8 @@ def main(argv=None) -> int:
     print(json.dumps({"osc_f32_cmd_err_vs_f64": {
         "mean": float(osc_err.mean()), "p99": float(np.quantile(osc_err, 0.99)),
         "max": float(osc_err.max())}}), flush=True)
+    print(json.dumps({"ugv": {k: v for k, v in ugv_sum.items() if k != "k2_by_shape"}}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -655,12 +655,16 @@ class NLMPC:
 
     # -- checkpoint / resume ---------------------------------------------
     def save_state(self, path: str) -> None:
-        """Snapshot warm-start state + last command (not ported yet: the
-        JAX package's ``utils/checkpoint.py`` is a later slice)."""
-        raise NotImplementedError("NLMPC.save_state: utils/checkpoint.py is not ported yet")
+        """Snapshot warm-start state + last command to ``path`` (.npz, the
+        JAX package's layout: either package loads the other's file)."""
+        from ..utils import checkpoint
+
+        checkpoint.save_nlmpc(self, path)
 
     def load_state(self, path: str) -> None:
-        raise NotImplementedError("NLMPC.load_state: utils/checkpoint.py is not ported yet")
+        from ..utils import checkpoint
+
+        checkpoint.load_nlmpc(self, path)
 
     # -- slice validation (reference: include/mpc/IMPC.hpp:244-283) -------
     def is_slice_unset(self, slice: HorizonSlice) -> bool:

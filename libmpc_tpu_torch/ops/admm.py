@@ -24,6 +24,12 @@ primal/dual infeasibility certificates and an active-set polish.
   per termination check, and the adaptive-rho refactorization and the
   cold-rho branch are Python ``if``s on scalars read from the device.
 
+:func:`admm_solve_each` solves a batch whose instances each have their own
+(P, A) — the SQP's inner ``"admm"`` engine, the JAX package's ``vmap`` of
+``admm_solve`` — with each lane's own scaling, rho and KKT inverse (the
+batched inverse kernel of ``ops/batched_linalg.py``), lanes stopping on
+their own.
+
 Status codes reuse OSQP's integer values so ``Result.solver_status`` is
 directly comparable with the reference's
 (reference: include/mpc/LMPC/LOptimizer.hpp:386-415).  The JAX package's
@@ -95,6 +101,16 @@ class QPSolution(NamedTuple):
 
 def _inf_norm(v, dim=-1):
     return torch.amax(torch.abs(v), dim=dim)
+
+
+def _mm(X, M):
+    """``X @ M`` for a matrix ``M`` shared by the batch (k, n), or one
+    matrix a lane (B, k, n), where a batch of row vectors ``X`` (B, k) then
+    multiplies its own lane's matrix; two batches of matrices multiply lane
+    by lane."""
+    if M.dim() == 3 and X.dim() == 2:
+        return (X[:, None, :] @ M)[:, 0]
+    return X @ M
 
 
 def _ruiz_equilibration(P, A, q_ref, iters: int):
@@ -218,7 +234,9 @@ def prepare_qp(P, A, q_ref, eq_mask, loose_mask,
 def _polish_prep(P, A, eq_mask):
     """Shared-polish base inverse pair (hi, lo) on the UNSCALED problem
     (the polish operates unscaled): equality rows are active in every
-    instance.
+    instance.  ``P`` (n, n), ``A`` (m, n) and ``eq_mask`` (m,), or each with
+    a leading batch axis for one pair a lane (:func:`admm_solve_each`; the
+    JAX package's vmap of the same setup).
 
     Float32: the pair is the float64 inverse of ``Mp`` split into its
     float32 head and tail.  The JAX package builds it from float32 pieces
@@ -231,30 +249,30 @@ def _polish_prep(P, A, eq_mask):
     error 5.1e-4) and accepted with this one (1.9e-6 dual residual).  The
     setup runs once per configuration.
     """
-    n = P.shape[0]
+    n = P.shape[-1]
     dtype = P.dtype
     delta = _polish_delta_shared(dtype)
     if dtype == torch.float32:
         P64, A64 = P.double(), A.double()
         w64 = eq_mask.double() / delta
         Mp64 = (P64 + delta * torch.eye(n, dtype=torch.float64, device=P.device)
-                + (A64.T * w64[None, :]) @ A64)
+                + (A64.mT * w64[..., None, :]) @ A64)
         inv = torch.cholesky_inverse(torch.linalg.cholesky(Mp64))
         hi = inv.float()
         return hi, (inv - hi.double()).float()
     eye = torch.eye(n, dtype=dtype, device=P.device)
     w_eq = eq_mask.to(dtype) / delta
-    Mp = P + delta * eye + (A.T * w_eq[None, :]) @ A
+    Mp = P + delta * eye + (A.mT * w_eq[..., None, :]) @ A
     # kappa(Mp) ~ 1/delta^2 overwhelms a raw float32 Cholesky; the spread
     # is diagonal-structural, so Jacobi scaling tames it, and two Newton
     # passes X <- X(2I - Ms X) square the factorization residual down to
     # the float32 floor
-    s = torch.rsqrt(torch.clamp(torch.diagonal(Mp), min=1e-30))
-    Ms = Mp * s[:, None] * s[None, :]
+    s = torch.rsqrt(torch.clamp(torch.diagonal(Mp, dim1=-2, dim2=-1), min=1e-30))
+    Ms = Mp * s[..., :, None] * s[..., None, :]
     Msinv = torch.cholesky_inverse(torch.linalg.cholesky(Ms))
     for _ in range(2):
         Msinv = Msinv @ (2.0 * eye - Ms @ Msinv)
-    Mpinv = Msinv * s[:, None] * s[None, :]
+    Mpinv = Msinv * s[..., :, None] * s[..., None, :]
     # double-single low word: E = I - Mp Mpinv via a compensated product,
     # then lo = Mpinv E; applying (Mpinv + Mpinv_lo) removes the eps.kappa
     # systematic error of the stored float32 inverse
@@ -270,13 +288,20 @@ def _build_kkt_inverse(P, A, rho_vec, sigma):
 
     An explicit inverse turns every ADMM x-update into a plain matrix
     product.  M is returned too so float32 runs can refine the x-update
-    against it.  One shared (n, n) Cholesky: a library factorization, not a
-    kernel of this port.
+    against it.  Shared (P, A): one (n, n) Cholesky, a library
+    factorization, not a kernel of this port.  One matrix a lane (``P``
+    (B, n, n), ``A`` (B, m, n), ``rho_vec`` (B, m)): the batched inverse
+    kernel K2 (:func:`ops.batched_linalg.chol_inverse`; its twin on CPU
+    tensors), and past its gate, n > 64, the blocked Schur recursion over
+    it on either device (``libmpc_tpu/ops/batched_linalg.py:158-175``).
     """
-    eye = torch.eye(P.shape[0], dtype=P.dtype, device=P.device)
-    M = P + sigma * eye + (A.T * rho_vec[None, :]) @ A
-    Minv = batched_linalg.spd_inverse(M).contiguous()
-    return M, Minv
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    M = P + sigma * eye + (A.mT * rho_vec[..., None, :]) @ A
+    if M.dim() == 2:
+        return M, batched_linalg.spd_inverse(M).contiguous()
+    if batched_linalg.kernel_supported(M.shape[-1]):
+        return M, batched_linalg.chol_inverse(M)
+    return M, batched_linalg.chol_inverse_blocked(M).contiguous()
 
 
 class _LoopState(NamedTuple):
@@ -297,8 +322,8 @@ class _LoopState(NamedTuple):
     pri_chk: torch.Tensor  # (B,) residuals at the previous check — stall
     dua_chk: torch.Tensor  # detection state (params.stall_checks)
     stall_ct: torch.Tensor  # (B,) consecutive no-improvement checks
-    rho: torch.Tensor  # () shared across the batch
-    M: torch.Tensor
+    rho: torch.Tensor  # () shared across the batch, or (B,) one a lane
+    M: torch.Tensor  # (n, n), or (B, n, n) one a lane
     Minv: torch.Tensor
 
 
@@ -314,22 +339,29 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
     infeasibility certificates, the relaxed verdict a max-iteration exit
     would report, float32 stall detection and the adaptive-rho estimate.
 
+    Shared (P, A): ``P`` (n, n), ``A`` (m, n), scalings ``d`` (n,), ``e``
+    (m,), ``c`` () and one rho (0-d) for the batch.  Per lane
+    (:func:`admm_solve_each`): ``P`` (B, n, n), ``A`` (B, m, n), ``d``
+    (B, n), ``e`` (B, m), ``c`` (B,) and rho (B,); each lane's adaptive-rho
+    estimate is then the geometric mean over that lane alone.
+
     Returns the updated state, the adaptive-rho verdict and the rho
-    estimate (0-d tensors, still on the device).
+    estimate (0-d tensors, or (B,) per lane; still on the device).
     """
     f32 = P.dtype == torch.float32
     _, rho_lo, rho_hi = _rho_bounds(P.dtype, params)
+    cc = c if c.dim() == 0 else c[:, None]  # c against (B, m) rows
     x, z, y = state.x, state.z, state.y
     # -- unscaled residuals ------------------------------------------
-    Ax = x @ A.T
-    Px = x @ P
-    Aty = y @ A
-    pri = _inf_norm((Ax - z) / e[None, :])
-    dua = _inf_norm((Px + qs + Aty) / d[None, :]) / c
-    pri_rel = torch.maximum(_inf_norm(Ax / e[None, :]), _inf_norm(z / e[None, :]))
+    Ax = _mm(x, A.mT)
+    Px = _mm(x, P)
+    Aty = _mm(y, A)
+    pri = _inf_norm((Ax - z) / e)
+    dua = _inf_norm((Px + qs + Aty) / d) / c
+    pri_rel = torch.maximum(_inf_norm(Ax / e), _inf_norm(z / e))
     dua_rel = torch.maximum(
-        torch.maximum(_inf_norm(Px / d[None, :]), _inf_norm(Aty / d[None, :])),
-        _inf_norm(qs / d[None, :]),
+        torch.maximum(_inf_norm(Px / d), _inf_norm(Aty / d)),
+        _inf_norm(qs / d),
     ) / c
     eps_pri = params.eps_abs + params.eps_rel * pri_rel
     eps_dua = params.eps_abs + params.eps_rel * dua_rel
@@ -337,15 +369,15 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
 
     # -- infeasibility certificates (unscaled deltas) ----------------
     # unscaling: x = D x_bar, y = c^-1 E y_bar
-    dy = (y - state.y_prev) * e[None, :] / c
-    dx = (x - state.x_prev) * d[None, :]
+    dy = (y - state.y_prev) * e / cc
+    dx = (x - state.x_prev) * d
     norm_dy = _inf_norm(dy)
     norm_dx = _inf_norm(dx)
 
     # primal infeasibility: ||A' dy|| small and support function negative
-    Atdy = _inf_norm(((y - state.y_prev) @ A) / d[None, :]) / c
-    u_unscaled = us / e[None, :]
-    l_unscaled = ls / e[None, :]
+    Atdy = _inf_norm(_mm(y - state.y_prev, A) / d) / c
+    u_unscaled = us / e
+    l_unscaled = ls / e
     dy_plus = torch.clamp(dy, min=0.0)
     dy_minus = torch.clamp(dy, max=0.0)
     # the where() keeps 0 * (+-1e30) bounds out of the sum on rows
@@ -361,9 +393,9 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
     prim_inf = (norm_dy > params.eps_prim_inf) & (sup < -eps_p) & (Atdy < eps_p)
 
     # dual infeasibility: P dx ~ 0, q'dx < 0, A dx in recession cone
-    Pdx = _inf_norm((dx / d[None, :]) @ P / d[None, :]) / c
-    qdx = torch.sum(qs / d[None, :] * dx, dim=-1) / c
-    Adx = (dx / d[None, :]) @ A.T / e[None, :]
+    Pdx = _inf_norm(_mm(dx / d, P) / d) / c
+    qdx = torch.sum(qs / d * dx, dim=-1) / c
+    Adx = _mm(dx / d, A.mT) / e
     u_inf = u_unscaled >= INF_BOUND
     l_inf = l_unscaled <= -INF_BOUND
 
@@ -437,7 +469,8 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
     )
     done = state.done | solved | prim_inf | dual_inf | stalled
 
-    # -- adaptive rho (shared across batch to keep one shared factor) -
+    # -- adaptive rho (shared across the batch to keep one shared factor,
+    # or each lane's own) -------------------------------------------
     if params.adaptive_rho:
         ratio = torch.sqrt(torch.clamp(
             (pri / torch.clamp(pri_rel, min=1e-12))
@@ -445,10 +478,14 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
             1e-10, 1e10,
         ))
         ratio = torch.nan_to_num(ratio, nan=1.0, posinf=1e10, neginf=1e-10)
-        # geometric mean over still-active instances
+        # geometric mean over still-active instances: the batch's, or a
+        # lane's over itself (n_act 0 or 1; the exp(log) round trip is the
+        # JAX package's, whose rounding the tolerance test sees)
         active = ~done
-        log_sum = torch.sum(torch.where(active, torch.log(ratio), 0.0))
-        n_act = torch.sum(active)
+        log_sum = torch.where(active, torch.log(ratio), 0.0)
+        n_act = active.long()
+        if state.rho.dim() == 0:
+            log_sum, n_act = torch.sum(log_sum), torch.sum(n_act)
         rho_est = state.rho * torch.exp(log_sum / torch.clamp(n_act, min=1))
         rho_est = torch.clamp(torch.nan_to_num(rho_est, nan=rho_lo), rho_lo, rho_hi)
         need_update = (n_act > 0) & (
@@ -457,7 +494,7 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
         )
     else:
         rho_est = state.rho
-        need_update = torch.zeros((), dtype=torch.bool, device=P.device)
+        need_update = torch.zeros_like(state.rho, dtype=torch.bool)
 
     state = state._replace(
         x_prev=x,
@@ -624,28 +661,28 @@ def _comp_mm(X, M, chunk=32):
 
     The head-product partial sums are accumulated per contraction chunk and
     combined with error-free TwoSums; the cross/tail products are ~eps of
-    the result and go straight into the low word.  Depends on IEEE order of
-    the elementwise operations: eager PyTorch keeps it (do not compile
-    this)."""
+    the result and go straight into the low word.  ``M`` may be one matrix
+    a lane (see :func:`_mm`).  Depends on IEEE order of the elementwise
+    operations: eager PyTorch keeps it (do not compile this)."""
     Xh, Xl = _split12(X)
     Mh, Ml = _split12(M)
-    K = M.shape[0]
+    K = M.shape[-2]
     hi = None
     lo = 0.0
     for c0 in range(0, K, chunk):
-        p = Xh[..., c0 : c0 + chunk] @ Mh[c0 : c0 + chunk, :]
+        p = _mm(Xh[..., c0 : c0 + chunk], Mh[..., c0 : c0 + chunk, :])
         if hi is None:
             hi = p
         else:
             hi, e = _two_sum(hi, p)
             lo = lo + e
-    lo = lo + (X @ Ml + Xl @ Mh)
+    lo = lo + (_mm(X, Ml) + _mm(Xl, Mh))
     return hi, lo
 
 
 def _polish_active_set(l, u, sol_y, eq_mask, dtype, delta):
     """Active rows from dual signs (OSQP polish.c) -> (active, b, w)."""
-    low_active = (sol_y < 0) | (eq_mask[None, :] & (sol_y <= 0))
+    low_active = (sol_y < 0) | (eq_mask & (sol_y <= 0))
     upp_active = sol_y > 0
     active = low_active | upp_active
     b = torch.where(low_active, l, torch.where(upp_active, u, 0.0))
@@ -657,11 +694,11 @@ def _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x_pol, y_pol, active):
     """Per-instance acceptance: keep the polished solution only if it
     reduces both residual norms (OSQP polish.c:polish())."""
     y_pol = torch.where(active, y_pol, 0.0)
-    z_pol = torch.clamp(x_pol @ A.T, min=l, max=u)
+    z_pol = torch.clamp(_mm(x_pol, A.mT), min=l, max=u)
 
     def residuals(x, z, y):
-        pri = _inf_norm(x @ A.T - z)
-        dua = _inf_norm(x @ P + q + y @ A)
+        pri = _inf_norm(_mm(x, A.mT) - z)
+        dua = _inf_norm(_mm(x, P) + q + _mm(y, A))
         return pri, dua
 
     pri0, dua0 = residuals(sol_x, sol_z, sol_y)
@@ -678,7 +715,7 @@ def _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x_pol, y_pol, active):
 
 
 def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
-                   eq_mask, prepared: PreparedQP):
+                   eq_mask, Mpinv, Mpinv_lo):
     """Active-set polish with ONE shared factorization + exact per-instance
     Woodbury corrections (``libmpc_tpu/ops/admm.py:933``).
 
@@ -693,30 +730,39 @@ def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
     CUDA tensors).  Outer refinement against the TRUE optimality system
     contracts the O(delta) penalty bias each pass.  Instances with more
     than ``k_max`` active inequality rows get an inexact correction and are
-    caught by the acceptance test (kept unpolished).
+    caught by the acceptance test (kept unpolished).  With one (P, A) a lane
+    (:func:`admm_solve_each`) ``Mp`` and its inverse pair are each lane's
+    own and the formulas are the same lane by lane.
     """
     dtype = P.dtype
-    m = A.shape[0]
+    m = A.shape[-2]
     delta = _polish_delta_shared(dtype)
     outer_iters = max(6, params.polish_refine_iter)
     k_max = min(params.polish_active_cap, m)
-    Mpinv = prepared.Mpinv
-    Mpinv_lo = prepared.Mpinv_lo
 
     def mp_solve(r):
         # the double-single inverse pair: two plain products
-        return r @ Mpinv + r @ Mpinv_lo
+        return _mm(r, Mpinv) + _mm(r, Mpinv_lo)
 
     active, bnd, w = _polish_active_set(l, u, sol_y, eq_mask, dtype, delta)
 
     # per-instance indices of the active inequality rows, padded with
-    # inactive rows masked out of the capacitance (torch.topk breaks ties
-    # in another order than lax.top_k: C comes out permuted, the solve is
-    # the same up to rounding)
-    extra = active & ~eq_mask[None, :]
-    _, idx = torch.topk(extra.to(dtype), k_max, dim=-1)  # (B, k)
+    # inactive rows masked out of the capacitance.  Shared (P, A):
+    # torch.topk, which breaks ties in another order than lax.top_k, so C
+    # comes out permuted and the solve is the same up to rounding.  One
+    # (P, A) a lane: lax.top_k's order, lowest index first among equals, so
+    # that a lane with more than k_max active rows keeps the same k_max rows
+    # as in the JAX package
+    extra = active & ~eq_mask
+    if A.dim() == 2:
+        _, idx = torch.topk(extra.to(dtype), k_max, dim=-1)  # (B, k)
+        rows = A[idx]
+    else:
+        idx = torch.sort(extra.to(dtype), dim=-1, descending=True,
+                         stable=True).indices[:, :k_max]
+        rows = torch.gather(A, 1, idx[:, :, None].expand(-1, -1, A.shape[-1]))
     valid = torch.gather(extra, -1, idx)  # (B, k)
-    A_g = torch.where(valid[:, :, None], A[idx], 0.0)  # (B, k, n), masked rows zeroed
+    A_g = torch.where(valid[:, :, None], rows, 0.0)  # (B, k, n), masked rows zeroed
 
     # batched capacitance C = delta I + U' Mpinv U; invalid slots become
     # decoupled unit equations
@@ -737,13 +783,13 @@ def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
     nu = torch.where(active, sol_y, 0.0)
 
     def correct(x, nu, r1, r2):
-        dx = K_solve(r1 + (w * r2) @ A)
-        dnu = w * (dx @ A.T - r2)
+        dx = K_solve(r1 + _mm(w * r2, A))
+        dnu = w * (_mm(dx, A.mT) - r2)
         return x + dx, nu + dnu, dx, dnu
 
     def plain(x, nu):
-        r1 = -q - x @ P - torch.where(active, nu, 0.0) @ A
-        r2 = torch.where(active, bnd - x @ A.T, 0.0)
+        r1 = -q - _mm(x, P) - _mm(torch.where(active, nu, 0.0), A)
+        r2 = torch.where(active, bnd - _mm(x, A.mT), 0.0)
         x, nu, _, _ = correct(x, nu, r1, r2)
         return x, nu
 
@@ -759,14 +805,14 @@ def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
         s, e1 = _two_sum(-q, -h1)
         s, e2 = _two_sum(s, -h2)
         r1 = s + (e1 + e2 - l1 - l2)
-        h3, l3 = _comp_mm(x, A.T)
+        h3, l3 = _comp_mm(x, A.mT)
         bnd_m = torch.where(active, bnd, 0.0)
         s3, e3 = _two_sum(bnd_m, -h3)
         r2 = torch.where(active, s3 + (e3 - l3), 0.0)
         for _ in range(max(params.polish_comp_passes, 0)):
             x, nu, dx, dnu = correct(x, nu, r1, r2)
-            r1 = r1 - dx @ P - dnu @ A
-            r2 = torch.where(active, r2 - dx @ A.T, 0.0)
+            r1 = r1 - _mm(dx, P) - _mm(dnu, A)
+            r2 = torch.where(active, r2 - _mm(dx, A.mT), 0.0)
         x_pol, y_pol = x, nu
     else:
         for _ in range(outer_iters):
@@ -787,7 +833,7 @@ def _polish(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters, eq_mask):
     weights), then refines against the unregularized KKT system.
     """
     dtype = P.dtype
-    n = P.shape[1]
+    n = P.shape[-1]
     f32 = dtype == torch.float32
     delta = _polish_delta(dtype)
     refine_iters = (max(params.polish_refine_iter, 15) if f32
@@ -795,19 +841,19 @@ def _polish(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters, eq_mask):
 
     active, b, w = _polish_active_set(l, u, sol_y, eq_mask, dtype, delta)
     eye = torch.eye(n, dtype=dtype, device=P.device)
-    M = P + delta * eye + A.T @ (w[:, :, None] * A)  # (B, n, n)
+    M = P + delta * eye + A.mT @ (w[:, :, None] * A)  # (B, n, n)
     L = torch.linalg.cholesky(M)
 
     def cho_solve(r):
         return torch.cholesky_solve(r[:, :, None], L)[..., 0]
 
-    x = cho_solve(-q + (w * b) @ A)
-    nu = w * (x @ A.T - b)
+    x = cho_solve(-q + _mm(w * b, A))
+    nu = w * (_mm(x, A.mT) - b)
     for _ in range(refine_iters):
-        r1 = -q - x @ P - torch.where(active, nu, 0.0) @ A
-        r2 = torch.where(active, b - x @ A.T, 0.0)
-        dx = cho_solve(r1 + (w * r2) @ A)
-        dnu = w * (dx @ A.T - r2)
+        r1 = -q - _mm(x, P) - _mm(torch.where(active, nu, 0.0), A)
+        r2 = torch.where(active, b - _mm(x, A.mT), 0.0)
+        dx = cho_solve(r1 + _mm(w * r2, A))
+        dnu = w * (_mm(dx, A.mT) - r2)
         x, nu = x + dx, nu + dnu
     return _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x, nu, active)
 
@@ -952,7 +998,8 @@ def admm_solve(
                 mp_hi, mp_lo = _polish_prep(P, A, eq_mask)
                 prepared = prepared._replace(Mpinv=mp_hi, Mpinv_lo=mp_lo)
             x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
-                P, A, q, l, u, x, y, z, params, eq_mask, prepared
+                P, A, q, l, u, x, y, z, params, eq_mask, prepared.Mpinv,
+                prepared.Mpinv_lo,
             )
         else:
             x_p, y_p, z_p, pri_p, dua_p = _polish(
@@ -975,3 +1022,343 @@ def admm_solve(
     if unbatched:
         sol = QPSolution(*(t[0] for t in sol))
     return sol
+
+
+class _EachData(NamedTuple):
+    """The running lanes' scaled problem data in :func:`_admm_loop_each`."""
+
+    P: torch.Tensor  # (B, n, n)
+    A: torch.Tensor  # (B, m, n)
+    qs: torch.Tensor
+    ls: torch.Tensor
+    us: torch.Tensor
+    eq_mask: torch.Tensor  # (B, m)
+    loose_mask: torch.Tensor
+    d: torch.Tensor
+    e: torch.Tensor
+    c: torch.Tensor  # (B,)
+
+
+def _each_block(state: _LoopState, data: _EachData, params: LParameters,
+                check_every: int):
+    """One block of the per-lane loop: ``check_every`` ADMM iterations of
+    lanes that are all still running (so no freeze mask), then the
+    termination check.  Returns (state, adaptive-rho verdict, rho estimate),
+    all new tensors: no input is written."""
+    sigma_v, _, _ = _rho_bounds(data.P.dtype, params)
+    refine = data.P.dtype == torch.float32 and params.x_refine
+    alpha = params.alpha
+    A, qs, ls, us = data.A, data.qs, data.ls, data.us
+    rho_vec = _rho_vec_of(state.rho[:, None], data.eq_mask, data.loose_mask)
+    M, Minv = state.M, state.Minv
+    x, z, y = state.x, state.z, state.y
+    for _ in range(check_every):
+        # x-update: (P + sigma I + A'RA) xt = sigma x - q + A'(R z - y)
+        rhs = sigma_v * x - qs + _mm(rho_vec * z - y, A)
+        xt = _mm(rhs, Minv)  # Minv symmetric
+        if refine:
+            # one refinement pass against M recovers the digits the
+            # explicit float32 inverse loses
+            xt = xt + _mm(rhs - _mm(xt, M), Minv)
+        zt = _mm(xt, A.mT)
+        x_new = alpha * xt + (1.0 - alpha) * x
+        z_relax = alpha * zt + (1.0 - alpha) * z
+        z_unc = z_relax + y / rho_vec
+        z = torch.clamp(z_unc, min=ls, max=us)
+        # y is exactly zero on rows where the projection did not clip
+        clipped = (z_unc < ls) | (z_unc > us)
+        y = torch.where(clipped, y + rho_vec * (z_relax - z), 0.0)
+        x = x_new
+    state = state._replace(x=x, z=z, y=y, iters=state.iters + check_every)
+    return _termination_check(state, data.P, A, qs, ls, us, data.d, data.e, data.c, params)
+
+
+def _bucket(n: int) -> int:
+    """The batch a block graph is captured for: ``n`` lanes rounded up to a
+    power of two, so that a few graphs serve every count of running lanes."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class _BlockGraph:
+    """:func:`_each_block` captured as a CUDA graph for ``size`` lanes: the
+    host issues one replay a block where it would issue about 900 launches
+    (a float32 UGV subproblem at the 500 cap runs 20 blocks of 25
+    iterations).  The state and the lanes' data live in the graph's own
+    tensors and a replay advances the state in place; lanes past the
+    running count are padding, copies of lane 0 whose results nothing reads
+    (each lane's arithmetic is its own).  Graphs are kept for the process,
+    one a (size, shapes, dtype, device, parameters)."""
+
+    _cache: dict = {}
+
+    @classmethod
+    def get(cls, size, state, data, params, check_every):
+        key = (size, state.x.shape[1:], state.z.shape[1:], state.x.dtype, state.x.device,
+               params, check_every)
+        graph = cls._cache.get(key)
+        if graph is None:
+            graph = cls._cache[key] = cls(size, state, data, params, check_every)
+        return graph
+
+    def __init__(self, size, state, data, params, check_every):
+        empty = lambda t: t.new_empty((size,) + tuple(t.shape[1:]))
+        self.size = size
+        self.state = _LoopState(*map(empty, state))
+        self.data = _EachData(*map(empty, data))
+        self.load(state, data)  # the warm-up's inputs
+        self.capture(params, check_every)
+
+    def capture(self, params, check_every):
+        dev = self.state.x.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _each_block(self.state, self.data, params, check_every)  # warm-up
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.need_update, self.rho_est = self.advance(params, check_every)
+
+    def advance(self, params, check_every):
+        """One block on the graph's tensors, the state written back in place."""
+        new, need_update, rho_est = _each_block(self.state, self.data, params, check_every)
+        for buf, val in zip(self.state, new):
+            buf.copy_(val)
+        return need_update, rho_est
+
+    def load(self, state, data):
+        """Copy ``state`` and ``data`` (their first axis the running lanes)
+        into the graph's tensors, padding with lane 0."""
+        n = state.x.shape[0]
+        for buf, val in zip(self.state + self.data, state + data):
+            buf[:n].copy_(val)
+            if n < self.size:
+                buf[n:].copy_(val[:1].expand((self.size - n,) + tuple(val.shape[1:])))
+
+    def run(self):
+        self.graph.replay()
+        return self.state, self.need_update, self.rho_est
+
+
+def _admm_loop_each(P, A, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
+                    rho0, M0, Minv0, params: LParameters, n_iters: int,
+                    check_every: int, graphs: Optional[bool] = None) -> _LoopState:
+    """The scaled-problem ADMM iterations of :func:`admm_solve_each`: one
+    (P, A), scaling, rho and KKT inverse a lane (``P`` (B, n, n), ``A``
+    (B, m, n), ``d`` (B, n), ``e`` (B, m), ``c``/``rho0`` (B,), ``M0``/
+    ``Minv0`` (B, n, n)).
+
+    Each lane runs the loop it would run alone: blocks of ``check_every``
+    iterations, a termination check after each, and its own stop at its own
+    verdict or at the block cap.  The lanes are independent, so the loop
+    works on the lanes still running only: when a check finishes some, their
+    final state is written back and the rest are gathered into a smaller
+    batch (the iteration then needs no freeze mask).  A lane whose
+    adaptive-rho test passes gets its KKT inverse rebuilt, and only those
+    lanes are refactorized (under the JAX package's vmap the ``lax.cond``
+    becomes a select that computes it for every lane and keeps it for
+    these).  One read from the device a block: the counts of finished lanes
+    and of refactorizations.
+
+    ``graphs`` (default: on CUDA tensors) replays each block as a CUDA graph
+    (:class:`_BlockGraph`) instead of launching its kernels one by one; the
+    kernels, and so the arithmetic of each lane, are the same.
+    """
+    B = qs.shape[0]
+    dtype, dev = P.dtype, P.device
+    if graphs is None:
+        graphs = dev.type == "cuda"
+    sigma_v, _, _ = _rho_bounds(dtype, params)
+
+    def full(v, dt):
+        return torch.full((B,), v, dtype=dt, device=dev)
+
+    state = _LoopState(
+        x=x0, z=_mm(x0, A.mT), y=y0, x_prev=x0, y_prev=y0,
+        iters=full(0, torch.int32),
+        done=full(False, torch.bool),
+        status=full(OSQP_UNSOLVED, torch.int32),
+        pri_res=full(float("inf"), dtype),
+        dua_res=full(float("inf"), dtype),
+        inacc_status=full(OSQP_MAX_ITER_REACHED, torch.int32),
+        pri_chk=full(float("inf"), dtype),
+        dua_chk=full(float("inf"), dtype),
+        stall_ct=full(0, torch.int32),
+        rho=rho0, M=M0, Minv=Minv0,
+    )
+    data = _EachData(P, A, qs, ls, us, eq_mask, loose_mask, d, e, c)
+    out = state
+    lanes = torch.arange(B, device=dev)  # the original index of each running lane
+    graph = None
+    if graphs:
+        graph = _BlockGraph.get(_bucket(B), state, data, params, check_every)
+        graph.load(state, data)
+    n_blocks = max(1, (n_iters + check_every - 1) // check_every)
+    for k in range(n_blocks):
+        n = lanes.numel()
+        if graph is None:
+            state, need_update, rho_est = _each_block(state, data, params, check_every)
+        else:
+            # the graph's tensors hold the n running lanes first
+            state, need_update, rho_est = graph.run()
+            state = _LoopState(*(t[:n] for t in state))
+            need_update, rho_est = need_update[:n], rho_est[:n]
+            data = _EachData(*(t[:n] for t in graph.data))
+        n_done, n_update = torch.stack([state.done.sum(), need_update.sum()]).tolist()
+        if n_update:
+            iu = torch.nonzero(need_update)[:, 0]
+            rho_u = rho_est[iu]
+            M_u, Minv_u = _build_kkt_inverse(
+                data.P[iu], data.A[iu],
+                _rho_vec_of(rho_u[:, None], data.eq_mask[iu], data.loose_mask[iu]), sigma_v,
+            )
+            if graph is None:
+                state = state._replace(
+                    rho=state.rho.index_copy(0, iu, rho_u),
+                    M=state.M.index_copy(0, iu, M_u), Minv=state.Minv.index_copy(0, iu, Minv_u),
+                )
+            else:  # in place, in the graph's tensors
+                state.rho.index_copy_(0, iu, rho_u)
+                state.M.index_copy_(0, iu, M_u)
+                state.Minv.index_copy_(0, iu, Minv_u)
+        last = k == n_blocks - 1 or n_done == n
+        if n_done or last:
+            fin = torch.nonzero(torch.ones_like(state.done) if last else state.done)[:, 0]
+            out = out._replace(**{
+                f: getattr(out, f).index_copy(0, lanes[fin], getattr(state, f)[fin])
+                for f in _LANE_FIELDS
+            })
+            if last:
+                break
+            keep = torch.nonzero(~state.done)[:, 0]
+            state = _LoopState(*(t[keep] for t in state))
+            data = _EachData(*(t[keep] for t in data))
+            lanes = lanes[keep]
+            if graph is not None:
+                graph = _BlockGraph.get(_bucket(keep.numel()), state, data, params, check_every)
+                graph.load(state, data)
+    # lanes that never converged report the relaxed-tolerance verdict of
+    # their final check
+    status = torch.where(out.status == OSQP_UNSOLVED, out.inacc_status, out.status)
+    return out._replace(status=status)
+
+
+def admm_solve_each(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    params: LParameters = LParameters(),
+    warm_x: Optional[torch.Tensor] = None,
+    warm_y: Optional[torch.Tensor] = None,
+    eq_mask: Optional[torch.Tensor] = None,
+    graphs: Optional[bool] = None,
+) -> QPSolution:
+    """Solve a batch of QPs, each with its own (P, A): lane b computes what
+    :func:`admm_solve` computes for instance b alone (the JAX package's
+    ``jax.vmap(admm_solve)`` over unbatched instances: the SQP's inner
+    ``"admm"`` engine, ``libmpc_tpu/ops/sqp.py:617-635``).
+
+    Args:
+      P: (B, n, n) quadratic costs (full symmetric).
+      A: (B, m, n) constraint matrices.
+      q, l, u: (B, n) / (B, m).
+      params: OSQP-style settings.
+      warm_x, warm_y: optional warm-start primal/dual, shaped like q / l.
+      eq_mask: optional (m,) or (B, m) bool marking structural equality
+        rows; each lane's own ``l == u`` rows when omitted.
+      graphs: replay each block of iterations as a CUDA graph (default:
+        on CUDA tensors; see :func:`_admm_loop_each`).
+
+    Everything the shared-(P, A) solve reduces over the batch is the lane's
+    own here: the equality and loose masks, the cost-scaling reference
+    ``|q|``, the Ruiz scalings d (B, n), e (B, m), c (B,), rho (B,) and the
+    KKT matrix and inverse (B, n, n), built by the batched inverse kernel K2
+    (:func:`_build_kkt_inverse`) and rebuilt, lane by lane, when a lane's
+    adaptive-rho test passes (see :func:`_admm_loop_each`).  The shared
+    polish runs on each lane's own base inverse pair.  There is no
+    straggler compaction (the JAX package compacts only batches of 256 and
+    more, and each instance is a batch of one) and no iteration budget.  A
+    lane starts from ``warm_x``/``warm_y`` or from zeros: ``cold_start``
+    and ``cold_rho``, which only the shared-(P, A) LMPC uses, are not read.
+
+    ``admm_solve_each.trace``, when a list, collects (iters, status) of each
+    call, both (B,).
+    """
+    full_precision(P.device)
+    dtype, dev = P.dtype, P.device
+    B, n = q.shape
+    m = A.shape[-2]
+    if eq_mask is None:
+        eq_mask = (l == u) & torch.isfinite(l)
+    eq_mask = eq_mask.expand(B, m)
+    loose_mask = (l <= -INF_BOUND) & (u >= INF_BOUND)
+
+    # -- setup, each lane its own (prepare_qp of a batch of one) ----------
+    if params.scaling_iters > 0:
+        d, e, c = _ruiz_equilibration(P, A, torch.abs(q), params.scaling_iters)
+    else:
+        d = torch.ones((B, n), dtype=dtype, device=dev)
+        e = torch.ones((B, m), dtype=dtype, device=dev)
+        c = torch.ones((B,), dtype=dtype, device=dev)
+    Ps = c[:, None, None] * (P * d[:, None, :] * d[:, :, None])
+    As = A * e[:, :, None] * d[:, None, :]
+    qs = c[:, None] * (q * d)
+    # scale bounds, keeping infinities infinite
+    ls = torch.where(l <= -INF_BOUND, l, l * e)
+    us = torch.where(u >= INF_BOUND, u, u * e)
+
+    sigma_v, rho_lo, rho_hi = _rho_bounds(dtype, params)
+    rho0 = torch.clamp(_scalar(params.rho, P), rho_lo, rho_hi).expand(B).contiguous()
+    M0, Minv0 = _build_kkt_inverse(
+        Ps, As, _rho_vec_of(rho0[:, None], eq_mask, loose_mask), sigma_v
+    )
+
+    zeros = lambda k: torch.zeros((B, k), dtype=dtype, device=dev)
+    if warm_x is not None and params.enable_warm_start:
+        x0 = warm_x / d
+        y0 = zeros(m) if warm_y is None else warm_y / e * c[:, None]
+    else:
+        x0, y0 = zeros(n), zeros(m)
+
+    state = _admm_loop_each(
+        Ps, As, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
+        rho0, M0, Minv0, params, params.maximum_iteration,
+        min(params.check_termination, params.maximum_iteration), graphs,
+    )
+
+    # -- unscale ----------------------------------------------------------
+    x = state.x * d
+    y = state.y * e / c[:, None]
+    z = state.z / e
+    pri_res, dua_res = state.pri_res, state.dua_res
+
+    if params.polish:
+        if params.polish_mode == "shared":
+            x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
+                P, A, q, l, u, x, y, z, params, eq_mask,
+                *_polish_prep(P, A, eq_mask),
+            )
+        else:
+            x_p, y_p, z_p, pri_p, dua_p = _polish(
+                P, A, q, l, u, x, y, z, params, eq_mask
+            )
+        ok = (state.status == OSQP_SOLVED) | (state.status == OSQP_SOLVED_INACCURATE)
+        sel = ok[:, None]
+        x = torch.where(sel, x_p, x)
+        y = torch.where(sel, y_p, y)
+        z = torch.where(sel, z_p, z)
+        pri_res = torch.where(ok, pri_p, pri_res)
+        dua_res = torch.where(ok, dua_p, dua_res)
+
+    obj = 0.5 * torch.sum(_mm(x, P) * x, dim=-1) + torch.sum(q * x, dim=-1)
+    if admm_solve_each.trace is not None:
+        admm_solve_each.trace.append((state.iters, state.status))
+    return QPSolution(
+        x=x, y=y, z=z, status=state.status, iters=state.iters, obj_val=obj,
+        pri_res=pri_res, dua_res=dua_res,
+    )
+
+
+admm_solve_each.trace = None

@@ -44,7 +44,11 @@ the kernel's gate, to :func:`chol_inverse_blocked`.  Their callers are the
 SQP's second-order correction (``ops/sqp.py``, k = me), the float32 interior
 point (``ops/pdip.py``, k = nz + 1 and k = me), the border Schur complement
 of the banded-KKT factorization (``ops/trajectory_kkt.py``, k = nu + 2) and
-the LMPC polish (``ops/admm.py``, k = 24 at the quadrotor shape).
+the LMPC polish (``ops/admm.py``, k = 24 at the quadrotor shape).  The
+per-instance ADMM of the SQP's ``"admm"`` engine (``ops/admm.py``,
+``admm_solve_each``) calls :func:`chol_inverse` itself for its KKT inverses
+(k = nz, 61 at the UGV shape) and its polish capacitance (k = 24), and
+:func:`chol_inverse_blocked` past k = 64.
 """
 
 from __future__ import annotations
@@ -225,7 +229,8 @@ def chol_inverse(C):
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel on the
     current stream at :func:`layout`'s choice and count the launch in
-    ``chol_inverse.launches``.
+    ``chol_inverse.launches``.  ``chol_inverse.trace``, when a list,
+    collects (B, k, dtype) of every launch.
     """
     if C.device.type == "cpu":
         return chol_inverse_plain(C)
@@ -273,10 +278,13 @@ def _launch(lay, C):
     if code != 0:
         _build.check(code, f"chol_inverse kernel launch with {lay}")
     chol_inverse.launches += 1
+    if chol_inverse.trace is not None:
+        chol_inverse.trace.append((B, k, C.dtype))
     return out
 
 
 chol_inverse.launches = 0
+chol_inverse.trace = None
 
 
 def chol_inverse_blocked(C, block_k: int = BLOCK_K, leaf_k: int = MAX_K):

@@ -14,7 +14,8 @@ quadratic programming with an l1-merit line search:
 * the inner QP is the fused whole-solve ADMM kernel
   (``ops/qp_inner_fused.py``, float32), the banded-KKT interior point
   (``ops/trajectory_kkt.py``, for NLPs whose stage-local structure the
-  controller verified) or the dense interior-point method (``ops/pdip.py``);
+  controller verified), the dense interior-point method (``ops/pdip.py``)
+  or the per-instance ADMM (``ops/admm.py::admm_solve_each``);
 * the line search is a lazy backtracking loop trying [unit step,
   second-order-correction candidate, halvings] and stopping at the first
   Armijo pass.
@@ -238,56 +239,47 @@ def plan_applies(traj_plan, params: NLParameters, nz: int, me: int, mi: int) -> 
 
 def inner_engine(params: NLParameters, dtype: torch.dtype, nz: int, m_qp: int,
                  plan_ok: bool = False) -> str:
-    """The inner-QP engine a solve runs: ``"fused"``, ``"riccati"`` or
-    ``"pdip"``.
+    """The inner-QP engine a solve runs: ``"fused"``, ``"riccati"``,
+    ``"pdip"`` or ``"admm"``.
 
-    Routing of ``libmpc_tpu/ops/sqp.py:218-263``.  ``plan_ok`` says that the
-    controller verified the NLP's banded structure, the curvature mode keeps
-    it and the shapes match the plan.  A float32 ``"fused"`` request runs
-    the fused kernel where the JAX package's size gate
-    (:func:`_fused_size_ok`) admits (nz, m_qp).  With a plan an explicit
-    ``"riccati"`` request runs the banded-KKT interior point, and so does a
-    ``"fused"`` request the fused engine does not serve (float64, or past
-    that gate).  Without a plan ``"riccati"`` degrades to ``"pdip"``, a
-    float64 ``"fused"`` request runs ``"pdip"`` (an f32 inner direction
-    cannot drive the outer loop to 1e-7 stationarity), and a float32
-    ``"fused"`` request past the gate raises, because the engine the JAX
-    package gives it (the inner ``"admm"``) is not ported; no request
-    quietly becomes another engine than the JAX package's.  A shape the
-    gate admits but the CUDA kernel's shared memory does not
-    (``qp_inner_fused.supported``) raises too; the gate is the stricter of
-    the two at every shape so far.
+    Routing of ``libmpc_tpu/ops/sqp.py:218-263``, the card in the TPU's
+    place.  ``plan_ok`` says that the controller verified the NLP's banded
+    structure, the curvature mode keeps it and the shapes match the plan.
+    An ``"admm"`` request runs the per-instance ADMM
+    (``admm.admm_solve_each``).  A float32 ``"fused"`` request runs the
+    fused kernel where the JAX package's size gate (:func:`_fused_size_ok`)
+    admits (nz, m_qp).  With a plan an explicit ``"riccati"`` request runs
+    the banded-KKT interior point, and so does a ``"fused"`` request the
+    fused engine does not serve (float64, or past that gate).  Without a
+    plan ``"riccati"`` degrades to ``"pdip"``, a float64 ``"fused"``
+    request runs ``"pdip"`` (an f32 inner direction cannot drive the outer
+    loop to 1e-7 stationarity), and a float32 ``"fused"`` request past the
+    gate runs ``"admm"``.  A shape the gate admits but the CUDA kernel's
+    shared memory does not (``qp_inner_fused.supported``) raises: no
+    request quietly becomes another engine than the JAX package's.  The
+    gate is the stricter of the two at every shape so far.
     """
     if params.inner_qp not in ("fused", "pdip", "riccati", "admm"):
         raise ValueError(f"unknown inner_qp {params.inner_qp!r}")
     if params.inner_qp == "admm":
-        raise NotImplementedError(
-            "inner_qp='admm' is not ported yet: the port's ops.admm.admm_solve "
-            "shares one (P, A) across the batch and the SQP subproblems are per "
-            "instance (ROADMAP.md queue 1: inner_qp='admm')"
-        )
+        return "admm"
     f32 = dtype == torch.float32
     fused_req = params.inner_qp == "fused"
     use_fused = fused_req and f32 and _fused_size_ok(nz, m_qp)
     if use_fused and not qp_inner_fused.supported(nz, m_qp, dtype):
         raise NotImplementedError(
             f"inner_qp='fused': a subproblem of n={nz}, m={m_qp} is within the "
-            "JAX package's fused size gate but past the CUDA kernel's shared "
-            "memory (qp_inner_fused.supported)")
+            "JAX package's fused size gate but past the CUDA kernel's "
+            "shared-memory gate (qp_inner_fused.supported)")
     if plan_ok and (params.inner_qp == "riccati" or (fused_req and not use_fused)):
         return "riccati"
     if params.inner_qp in ("pdip", "riccati") or (fused_req and not f32):
         return "pdip"
     if use_fused:
         return "fused"
-    raise NotImplementedError(
-        f"inner_qp='fused': a subproblem of n={nz}, m={m_qp} is past the "
-        "fused engine's size gate (the JAX package's VMEM formula, stricter "
-        "than the CUDA kernel's shared-memory gate) and the NLP has no "
-        "verified banded structure for the 'riccati' engine; the "
-        "JAX package routes such a request to the inner 'admm' engine, which "
-        "is not ported yet (ROADMAP.md queue 1: inner_qp='admm')"
-    )
+    # float32, past the gate, no plan: one KKT inverse a lane per SQP
+    # iteration instead of one per interior-point iteration
+    return "admm"
 
 
 def sqp_solve(
@@ -383,6 +375,15 @@ def sqp_solve(
     finite_lb = torch.clamp(lb, min=-big)
     finite_ub = torch.clamp(ub, max=big)
     eye_z = torch.eye(nz, **kw)
+
+    def qp_rows(Je, Ji, ce, ci, z):
+        """Constraint rows and bounds of the ADMM engines' subproblem:
+        Je d = -ce, Ji d <= -ci, lb - z <= d <= ub - z."""
+        A_qp = torch.cat([Je, Ji, eye_z.expand(Bt, nz, nz)], dim=1)
+        l_qp = torch.cat(
+            [-ce, torch.full((Bt, mi), -float("inf"), **kw), finite_lb - z], dim=1)
+        u_qp = torch.cat([-ce, -ci, finite_ub - z], dim=1)
+        return A_qp, l_qp, u_qp
 
     def constraint_viol(ce, ci):
         return torch.amax(
@@ -580,14 +581,11 @@ def sqp_solve(
             lam_i = _sel(ip_ok, ip.lam[:, :mi], s.lam_i)
             qp_x_new = d
             qp_y_new = s.qp_y
-        else:
+        elif engine == "fused":
             # fused ADMM: the whole batch of inner QPs solves in one kernel
             # launch (ops/qp_inner_fused.py) — host-side Ruiz, in-kernel
             # Cholesky + iteration loop + adaptive rho
-            A_qp = torch.cat([Je, Ji, eye_z.expand(Bt, nz, nz)], dim=1)
-            l_qp = torch.cat(
-                [-ce, torch.full((Bt, mi), -float("inf"), **kw), finite_lb - s.z], dim=1)
-            u_qp = torch.cat([-ce, -ci, finite_ub - s.z], dim=1)
+            A_qp, l_qp, u_qp = qp_rows(Je, Ji, ce, ci, s.z)
             loose = (l_qp <= -1e18) & (u_qp >= 1e18)
             rho_v = admm._rho_vec_of(torch.as_tensor(qp_par.rho, **kw), eq_mask, loose)
             x_f, y_f, *_ = qp_inner_fused.solve_batched(
@@ -606,6 +604,27 @@ def sqp_solve(
             lam_i = _sel(qp_ok, y_f[:, me:me + mi], s.lam_i)
             qp_x_new = d
             qp_y_new = _sel(qp_ok, y_f, s.qp_y)
+        else:
+            # per-instance ADMM (ops/admm.py::admm_solve_each): each lane's
+            # subproblem with its own scaling and KKT inverse, warm-started
+            # from the previous SQP iteration's direction and duals — across
+            # iterations the QP changes slowly, so the inner ADMM typically
+            # converges in a fraction of the cold iterations.  No finiteness
+            # select, as in the JAX package.  Only the lanes still iterating
+            # are solved: each lane's solve is its own, and the loop's select
+            # discards the others' values.
+            A_qp, l_qp, u_qp = qp_rows(Je, Ji, ce, ci, s.z)
+            idx = torch.nonzero(active)[:, 0]
+            part = (lambda t: t) if idx.numel() == Bt else (lambda t: t[idx])
+            sol = admm.admm_solve_each(
+                part(Bm), part(A_qp), part(g), part(l_qp), part(u_qp), params=qp_par,
+                eq_mask=eq_mask, warm_x=part(s.qp_x), warm_y=part(s.qp_y))
+            put = lambda old, new: old.index_copy(0, idx, new)
+            d = put(torch.zeros_like(s.z), sol.x)
+            lam_e = put(s.lam_e, sol.y[:, :me])
+            lam_i = put(s.lam_i, sol.y[:, me:me + mi])
+            qp_x_new = d
+            qp_y_new = put(s.qp_y, sol.y)
 
         # -- penalty update (SLSQP rule: mu = max(|lam|, (mu+|lam|)/2));
         # after a stalled line search, drop the accumulated history and

@@ -242,9 +242,11 @@ class NLParameters(Parameters):
     ``ops/trajectory_sweeps.py``, which also serves a ``"fused"`` request in
     float64 or past that size when the controller verified the NLP's
     stage-local structure (routing: ``ops/sqp.py::inner_engine``, the JAX
-    package's).  ``"admm"``, and with it an oversize float32 ``"fused"``
-    request without a verified structure, raises ``NotImplementedError``
-    until it is ported.
+    package's).  ``"admm"`` is the per-instance ADMM of
+    ``ops/admm.py::admm_solve_each`` (each lane's own scaling, rho and KKT
+    inverse, the inverses through the batched kernel of
+    ``ops/batched_linalg.py``), which also serves an oversize float32
+    ``"fused"`` request without a verified structure.
 
     ``hessian_reg`` (TPU-native extension) selects the curvature model of
     the QP subproblem:

@@ -682,3 +682,72 @@ def test_traj_kernels_refuse_what_they_do_not_take(cuda):
         tsw.batched_factor(D.transpose(2, 3), L, C, G, 3)
     with pytest.raises(ValueError, match="L must be"):
         tsw.batched_factor(D, L[:, :1], C, G, 3)
+
+
+def test_admm_solve_each_kernel_path_matches_twin_path_float64(cuda):
+    """The per-instance inner ADMM at the UGV shape (B = 256, n = 61,
+    m = 123: the first SQP iteration's QPs of the shipped loop), float64:
+    through K2, and with K2's plain twin substituted, equal statuses and
+    iteration counts lane by lane, x within 1e-9 (absolute and relative, as
+    the CPU parity tests)."""
+    from libmpc_tpu_torch.ops import admm, sqp
+
+    import libmpc_tpu_torch as lt
+
+    (P, A, q, l, u), kw = chip_smoke.ugv_first_qps(torch, lt, admm)
+    assert tuple(A.shape) == (256, 123, 61)
+    d = lambda t: t.double()
+    args = [d(t) for t in (P, A, q, l, u)]
+    kw = dict(params=sqp._qp_params(False), eq_mask=kw["eq_mask"],
+              warm_x=d(kw["warm_x"]), warm_y=d(kw["warm_y"]))
+    before = batched_linalg.chol_inverse.launches
+    sol_k = admm.admm_solve_each(*args, **kw)
+    assert batched_linalg.chol_inverse.launches > before
+    kernel = batched_linalg.chol_inverse
+    batched_linalg.chol_inverse = batched_linalg.chol_inverse_plain
+    try:
+        sol_t = admm.admm_solve_each(*args, **kw)
+    finally:
+        batched_linalg.chol_inverse = kernel
+    assert torch.equal(sol_k.status, sol_t.status)
+    assert torch.equal(sol_k.iters, sol_t.iters)
+    torch.testing.assert_close(sol_k.x, sol_t.x, rtol=1e-9, atol=1e-9)
+
+
+def test_ugv_controller_two_steps_float32(cuda):
+    """The shipped UGV configuration (float32, ``inner_qp="admm"``) for two
+    closed-loop steps at B = 8 on the card: every status SUCCESS."""
+    import libmpc_tpu_torch as lt
+    from libmpc_tpu_torch.ops import admm
+
+    c, plant, params_fn, x0, _ = chip_smoke.ugv_setup(torch, lt, torch.float32, 8)
+    admm.admm_solve_each.trace = []
+    try:
+        r = lt.nlmpc_rollout(c, plant, x0, torch.zeros((8, 2), dtype=torch.float32,
+                                                       device=cuda), 2, params_fn=params_fn)
+        assert len(admm.admm_solve_each.trace) > 0
+    finally:
+        admm.admm_solve_each.trace = None
+    assert r.inputs.dtype == torch.float32 and bool(torch.isfinite(r.inputs).all())
+    assert (r.statuses == int(lt.ResultStatus.SUCCESS)).all(), r.statuses
+
+
+def test_admm_solve_each_graph_replays_match_eager_launches(cuda):
+    """The per-instance loop's blocks replayed as CUDA graphs against the
+    same blocks launched one kernel at a time, float64 at the UGV shape:
+    equal statuses and iteration counts, x within 1e-9 (a graph's batch is
+    padded to a power of two, and cuBLAS may pick other kernels for it)."""
+    from libmpc_tpu_torch.ops import admm, sqp
+
+    import libmpc_tpu_torch as lt
+
+    (P, A, q, l, u), kw = chip_smoke.ugv_first_qps(torch, lt, admm)
+    d = lambda t: t.double()
+    args = [d(t) for t in (P, A, q, l, u)]
+    kw = dict(params=sqp._qp_params(False), eq_mask=kw["eq_mask"],
+              warm_x=d(kw["warm_x"]), warm_y=d(kw["warm_y"]))
+    graphed = admm.admm_solve_each(*args, graphs=True, **kw)
+    eager = admm.admm_solve_each(*args, graphs=False, **kw)
+    assert torch.equal(graphed.status, eager.status)
+    assert torch.equal(graphed.iters, eager.iters)
+    torch.testing.assert_close(graphed.x, eager.x, rtol=1e-9, atol=1e-9)

@@ -159,7 +159,7 @@ def test_infeasible_lane_reports_nan_and_others_solve():
     assert torch.isfinite(res.cmd[[0, 2]]).all()
 
 
-def test_setter_contracts_and_warm_start_roundtrip():
+def test_setter_contracts_and_warm_start_roundtrip(tmp_path):
     c = lt.LMPC(5, 3, 3, 7, 7, 5, dtype=torch.float64, device="cpu")
     with pytest.raises(RuntimeError):
         c.set_discretization_sampling_time(0.1)
@@ -173,8 +173,10 @@ def test_setter_contracts_and_warm_start_roundtrip():
     assert c._prob.s_min[0] == -1.0 and c._prob.s_min[1] == -1.0
     c.set_solver_warm_start(np.ones(c.dims.nz), np.zeros(c.dims.m))
     np.testing.assert_array_equal(c.get_solver_warm_start_primal(), np.ones(c.dims.nz))
-    with pytest.raises(NotImplementedError):
-        c.save_state("unused.npz")
+    c.save_state(str(tmp_path / "warm.npz"))
+    d = lt.LMPC(5, 3, 3, 7, 7, 5, dtype=torch.float64, device="cpu")
+    d.load_state(str(tmp_path / "warm.npz"))
+    np.testing.assert_array_equal(d.get_solver_warm_start_primal(), np.ones(c.dims.nz))
 
 
 def test_status_map_matches_reference_table():

@@ -199,7 +199,7 @@ def test_compacted_solve_equals_plain_solve():
     assert int(a._last_iters.max()) > tctl._CHUNK
 
 
-def test_setters_bounds_and_refusals():
+def test_setters_bounds_and_refusals(tmp_path):
     c = lt.NLMPC(5, 3, 1, 7, 4, 0, 0, dtype=torch.float64, device="cpu")
     jc = lj.NLMPC(5, 3, 1, 7, 4, 0, 0)
     for ctl in (c, jc):
@@ -219,8 +219,9 @@ def test_setters_bounds_and_refusals():
         c.set_optimizer_parameters(lt.LParameters())
     with pytest.raises(RuntimeError, match="state-space function"):
         c.optimize(np.zeros(5), np.zeros(3))
-    with pytest.raises(NotImplementedError):
-        c.save_state("unused.npz")
+    c.save_state(str(tmp_path / "unsolved.npz"))  # no warm state yet: dims and flags only
+    c.load_state(str(tmp_path / "unsolved.npz"))
+    assert c._first_iteration and c._opt_vector is None
     with pytest.raises(ValueError):
         c.set_stats_mode("eager")
     assert c.is_prediction_horizon_slice_valid(lt.HorizonSlice(0, 7))
@@ -287,17 +288,34 @@ def _long_vdp(coupled, **params):
     return c
 
 
-@pytest.mark.parametrize("inner,match", [("admm", "inner_qp='admm'"),
-                                         ("fused", "shared-memory gate")])
-def test_engine_requests_that_raise(inner, match):
-    """The inner ``"admm"`` engine is not ported, and an oversize float32
-    ``"fused"`` request without a verified banded plan is routed to it by the
-    JAX package: both raise and name ROADMAP.md."""
-    c = _long_vdp(True, maximum_iteration=5, inner_qp=inner)
+@pytest.mark.parametrize("inner", ["admm", "fused"],
+                         ids=["admm-inner_qp='admm'", "fused-shared-memory gate"])
+def test_engine_requests_that_raise(inner):
+    """The inner ``"admm"`` engine, and an oversize float32 ``"fused"``
+    request without a verified banded plan, which the JAX package routes to
+    it (both raised until the engine was ported): the per-instance ADMM
+    serves them, its KKT inverse at n = 126 through the blocked recursion
+    over K2 (the twin's leaves here)."""
+    from libmpc_tpu_torch.ops import admm as tadmm
+    from libmpc_tpu_torch.ops import batched_linalg as tbl
+
+    c = _long_vdp(True, maximum_iteration=3, inner_qp=inner)
     assert c._get_traj_plan() is None
-    with pytest.raises(NotImplementedError, match=match) as exc:
-        c.optimize(np.zeros(2), np.zeros(1))
-    assert "ROADMAP.md" in str(exc.value)
+    widths = []
+    blocked = tbl.chol_inverse_blocked
+
+    def spy(C, *a):
+        widths.append(C.shape[-1])
+        return blocked(C, *a)
+
+    tbl.chol_inverse_blocked, tadmm.admm_solve_each.trace = spy, []
+    try:
+        r = c.optimize(np.array([[0.3, -0.2], [0.1, 0.4]]), np.zeros((2, 1)))
+        trace = tadmm.admm_solve_each.trace
+    finally:
+        tbl.chol_inverse_blocked, tadmm.admm_solve_each.trace = blocked, None
+    assert len(trace) == int(c._last_iters.max()) and 126 in widths
+    assert r.cmd.dtype == torch.float32 and bool(torch.isfinite(r.cmd).all())
 
 
 def test_oversize_fused_request_with_a_plan_runs_the_banded_engine():
@@ -375,3 +393,105 @@ def test_ugv_float32_fused_request_runs_the_banded_engine():
     assert r.cmd.dtype == f32 and tuple(r.cmd.shape) == (2, nu)
     assert bool(torch.isfinite(r.cmd).all())
     assert (r.status == int(lt.ResultStatus.SUCCESS)).all(), r.status
+
+
+def _ugv(pkg, dtype, ph, **kw):
+    """The UGV NLP of ``bench.py:672-745`` (examples/ugv_ex.py) in either
+    package, with its shipped float32 fleet settings: ``inner_qp="admm"``,
+    ``hessian_reg="eigh"``, soft constraints, cold restarts of failed lanes
+    and a batched velocity reference."""
+    jax_side = pkg is lj
+    T = (lambda a: jnp.asarray(a, dtype)) if jax_side else (lambda a: torch.as_tensor(a, dtype=dtype))
+    total = (lambda v, ax=None: jnp.sum(v, axis=ax)) if jax_side else (
+        lambda v, ax=None: torch.sum(v) if ax is None else torch.sum(v, dim=ax))
+    sqrt = jnp.sqrt if jax_side else torch.sqrt
+    A = np.zeros((4, 4))
+    A[0:2, 2:4] = np.eye(2)
+    Bm = np.zeros((4, 2))
+    Bm[2:4, 0:2] = np.eye(2)
+    Ad, Bd = (np.asarray(M) for M in lj.discretization(A, Bm, 0.1))
+    Ad_t, Bd_t, obs, rad = T(Ad), T(Bd), T([[2.0, 1.0], [1.0, 1.0]]), T([0.3, 0.3])
+    c = pkg.NLMPC(4, 2, 4, ph, ph, (ph + 1) * 2, 0, dtype=dtype, **kw)
+    c.set_state_space_function(lambda x, u, k: Ad_t @ x + Bd_t @ u)
+    c.set_output_function(lambda x, u, k: x)
+    c.set_objective_function(
+        lambda X, Y, U, e, p: 1e3 * total((X[:, 2:4] - p["v_pref"][None, :]) ** 2)
+        + 1e-2 * total(U ** 2) + 1e-5 * e * e)
+    c.set_ineq_con_function(
+        lambda X, Y, U, e: (rad[None, :] - sqrt(total((X[:, None, 0:2] - obs[None]) ** 2, -1))
+                            ).reshape(-1))
+    c.set_optimizer_parameters(pkg.NLParameters(
+        maximum_iteration=200, hard_constraints=False, enable_warm_start=True,
+        inner_qp="admm", hessian_reg="eigh", relative_ftol=1e-6,
+        cold_restart_on_failure=True))
+    return c, Ad, Bd
+
+
+def test_ugv_admm_engine_matches_jax_float64():
+    """The UGV NLP at ph = 6 (the size of tests/test_examples.py), B = 4,
+    four closed-loop steps: three starts of ``bench.py``'s
+    ``default_rng(21)`` and one next to an obstacle.  Statuses, SQP
+    iterations and every inner solve's per-lane ADMM iterations equal the JAX
+    package's, commands within 1e-8."""
+    import jax
+
+    from libmpc_tpu.ops import admm as jadmm
+    from libmpc_tpu_torch.ops import admm as tadmm
+
+    B = 4
+    jc, Ad, Bd = _ugv(lj, jnp.float64, 6)
+    tc, _, _ = _ugv(lt, torch.float64, 6, device="cpu")
+    assert tsqp.inner_engine(tc._params, torch.float64, 49, 49 + 24 + 14) == "admm"
+    rng = np.random.default_rng(21)
+    x = np.concatenate([0.2 * rng.normal(size=(B, 2)), np.zeros((B, 2))], axis=1)
+    x[3] = [0.6, 0.95, 0.8, 0.0]
+    u = np.zeros((B, 2))
+    # each inner solve's (lane key, iterations): the key is a weighted sum of
+    # the lane's gradient g, which the lanes do not share; the JAX package's
+    # callbacks under vmap come one a lane, in no fixed order
+    jax_inner, port_inner = [], []
+    solve, solve_each = jadmm.admm_solve, tadmm.admm_solve_each
+
+    def recorded(P, A, q, *a, **k):
+        sol = solve(P, A, q, *a, **k)
+        key = jnp.sum(q * jnp.arange(1, q.shape[-1] + 1))
+        jax.debug.callback(lambda g0, it: jax_inner.append((float(g0), int(it))),
+                           key, sol.iters)
+        return sol
+
+    def recorded_each(P, A, q, *a, **k):
+        sol = solve_each(P, A, q, *a, **k)
+        key = torch.sum(q * torch.arange(1, q.shape[-1] + 1), dim=-1)
+        port_inner.append(list(zip(key.tolist(), sol.iters.tolist())))
+        return sol
+
+    recorded_each.trace = None
+
+    jadmm.admm_solve, tadmm.admm_solve_each = recorded, recorded_each
+    try:
+        for _ in range(4):
+            v = np.array([2.0, 2.0]) - x[:, :2]
+            v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-9)
+            jc.set_runtime_params({"v_pref": jnp.asarray(v)}, batched=True)
+            tc.set_runtime_params({"v_pref": v}, batched=True)
+            del jax_inner[:], port_inner[:]
+            rj, rt = jc.optimize(x, u), tc.optimize(x, u)
+            its = np.asarray(jc._last_iters)
+            np.testing.assert_array_equal(rt.status.numpy(), np.asarray(rj.status))
+            np.testing.assert_array_equal(tc._last_iters.numpy(), its)
+            np.testing.assert_allclose(rt.cmd.numpy(), np.asarray(rj.cmd), rtol=0, atol=1e-8)
+            # the JAX package solves every lane's subproblem in each SQP
+            # iteration of the batch (vmap), the port only the lanes still
+            # iterating: each of those matches the JAX lane of the same key
+            assert len(port_inner) == its.max() == len(jax_inner) // B
+            for k, lanes in enumerate(port_inner):
+                assert len(lanes) == (its > k).sum()
+                want = jax_inner[k * B:(k + 1) * B]
+                for g0, it in lanes:
+                    near = min(want, key=lambda w: abs(w[0] - g0))
+                    assert abs(near[0] - g0) <= 1e-6 * (1 + abs(g0)) and near[1] == it
+            u = np.asarray(rj.cmd)
+            x = x @ Ad.T + u @ Bd.T
+    finally:
+        jadmm.admm_solve, tadmm.admm_solve_each = solve, solve_each
+    assert (rt.status == 0).all()

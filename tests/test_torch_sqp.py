@@ -32,13 +32,13 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
-def _torch_nlp():
+def _torch_nlp(dtype=torch.float64):
     fns = tnlp.NLFunctions(
         state_fn=lambda x, u, k: torch.stack(
             [(1.0 - x[1] * x[1]) * x[0] - x[1] + u[0], x[0]]),
         objective_fn=lambda X, Y, U, e: torch.sum(X**2) + torch.sum(U**2),
         ineq_fn=lambda X, Y, U, e: U[:, 0] - 0.5, continuous=True, ts=0.1)
-    one = lambda k: torch.ones(k, dtype=torch.float64)
+    one = lambda k: torch.ones(k, dtype=dtype)
     a = (DIMS, fns, one(2), one(1))
     return (lambda z, x0: tnlp.objective(*a, z, x0),
             lambda z, x0: tnlp.state_defects(*a, z, x0),
@@ -82,10 +82,11 @@ def _torch_solve(z0, x0, lb, ub, params, **kw):
 
 @pytest.mark.parametrize("mode,inner", [
     ("gershgorin", "fused"), ("eigh", "pdip"), ("power", "pdip"),
-    ("gauss_newton", "pdip"), ("bfgs", "pdip")])
+    ("gauss_newton", "pdip"), ("bfgs", "pdip"), ("eigh", "admm")])
 def test_sqp_matches_jax_float64(mode, inner):
-    """float64 (a fused request runs the interior-point engine): per-lane
-    statuses and SQP iteration counts equal, z and the objective at 1e-9."""
+    """float64 (a fused request runs the interior-point engine; "admm" the
+    per-instance ADMM): per-lane statuses and SQP iteration counts equal, z
+    and the objective at 1e-9."""
     z0, x0, lb, ub = _inputs(3)
     kw = dict(maximum_iteration=60, hessian_reg=mode, inner_qp=inner)
     j = _jax_solve(z0, x0, lb, ub, JParams(**kw))
@@ -132,27 +133,55 @@ def test_chunked_run_equals_one_run():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(inner_qp="admm"), "inner_qp='admm'"),
-    (dict(inner_qp="fused"), "shared-memory gate"),
-])
-def test_engines_not_ported_raise(kw, match):
+@pytest.mark.parametrize("inner", ["admm", "fused"],
+                         ids=["kw0-inner_qp='admm'", "kw1-shared-memory gate"])
+def test_engines_not_ported_raise(inner):
     """The inner ``"admm"`` engine, and the oversize float32 ``"fused"``
-    request without a banded plan that the JAX package hands to it."""
-    z0, x0, lb, ub = _inputs(2)
-    if kw["inner_qp"] == "admm":
-        with pytest.raises(NotImplementedError, match=match):
-            _torch_solve(z0, x0, lb, ub, NLParameters(**kw))
-    with pytest.raises(NotImplementedError, match=match):
-        tsqp.inner_engine(NLParameters(**kw), torch.float32, 301, 842, plan_ok=False)
+    request without a banded plan that the JAX package hands to it, run the
+    per-instance ADMM (they raised until it was ported): every lane's inner
+    solve goes through ``admm_solve_each``, each SQP iteration solving the
+    lanes still iterating only."""
+    from libmpc_tpu_torch.ops import admm as tadmm
+
+    par = NLParameters(inner_qp=inner, maximum_iteration=8)
+    for plan_ok in (False, True):
+        assert tsqp.inner_engine(par, torch.float32, 301, 842, plan_ok) == (
+            "admm" if inner == "admm" or not plan_ok else "riccati")
+    z0, x0, lb, ub = _inputs(3)
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    f, ceq, cin = _torch_nlp(torch.float32)
+    fused_gate = tsqp._fused_size_ok
+    tadmm.admm_solve_each.trace = []
+    try:
+        tsqp._fused_size_ok = lambda n, m: False  # this NLP's size past the gate
+        sol = tsqp.sqp_solve(f, ceq, cin, T(z0), T(lb), T(ub), par,
+                             fn_args=(T(x0),), fn_in_dims=(0,))
+        trace = tadmm.admm_solve_each.trace
+    finally:
+        tsqp._fused_size_ok = fused_gate
+        tadmm.admm_solve_each.trace = None
+    assert len(trace) == int(sol.iters.max())
+    assert [len(it) for it, _ in trace] == [int((sol.iters > k).sum()) for k in range(len(trace))]
+    assert sol.z.dtype == torch.float32 and bool(torch.isfinite(sol.z).all())
+    assert (sol.status > 0).all()
 
 
 def test_fused_request_past_the_gate_raises_and_float64_routes_to_pdip():
     par = NLParameters(inner_qp="fused")
     assert tsqp.inner_engine(par, torch.float32, 26, 57) == "fused"
     assert tsqp.inner_engine(par, torch.float64, 26, 57) == "pdip"
-    with pytest.raises(NotImplementedError, match="shared-memory gate"):
-        tsqp.inner_engine(par, torch.float32, 301, 842)
+    assert tsqp.inner_engine(par, torch.float32, 301, 842) == "admm"
+    # what still raises: a shape within the JAX package's gate that the CUDA
+    # kernel's shared memory would refuse (no such shape is known)
+    from libmpc_tpu_torch.ops import qp_inner_fused
+
+    supported = qp_inner_fused.supported
+    qp_inner_fused.supported = lambda n, m, dtype: False
+    try:
+        with pytest.raises(NotImplementedError, match="shared-memory gate"):
+            tsqp.inner_engine(par, torch.float32, 26, 57)
+    finally:
+        qp_inner_fused.supported = supported
     # with a verified banded plan (libmpc_tpu/ops/sqp.py:241-263): an explicit
     # request, a float64 fused request and an oversize float32 one run the
     # banded engine; a request the fused kernel can serve keeps it; without a
@@ -203,8 +232,8 @@ def test_fused_size_gate_is_the_jax_packages(nz, m_qp):
 
 def _jax_engine(inner_qp, f32, nz, m_qp, plan_ok):
     """The decision of ``libmpc_tpu/ops/sqp.py:218-263`` on a CPU (or TPU)
-    backend, as a truth table: the engine's name, or None where the JAX
-    package runs its inner ``"admm"``, which the port does not have yet."""
+    backend, as a truth table: the engine's name, ``"admm"`` where the JAX
+    package runs its inner ADMM."""
     from libmpc_tpu.ops import qp_inner_pallas
 
     fused_req = inner_qp == "fused"
@@ -213,32 +242,36 @@ def _jax_engine(inner_qp, f32, nz, m_qp, plan_ok):
     use_pdip = not use_traj and (inner_qp in ("pdip", "riccati")
                                  or (fused_req and not use_fused and not f32))
     return ("fused" if use_fused else "riccati" if use_traj else "pdip" if use_pdip
-            else None)
+            else "admm")
 
 
 @pytest.mark.parametrize("nz,m_qp", GATE_GRID)
 def test_inner_engine_routes_as_the_jax_package(nz, m_qp):
-    """Every request (fused, riccati, pdip), float32 and float64, with and
-    without a verified banded plan, gets the JAX package's engine; where that
-    is the inner ``"admm"`` the port raises and names ROADMAP.md."""
-    for inner in ("fused", "riccati", "pdip"):
+    """Every request (fused, riccati, pdip, admm), float32 and float64, with
+    and without a verified banded plan, gets the JAX package's engine."""
+    for inner in ("fused", "riccati", "pdip", "admm"):
         par = NLParameters(inner_qp=inner)
         for dtype in (torch.float32, torch.float64):
             for plan_ok in (True, False):
                 want = _jax_engine(inner, dtype == torch.float32, nz, m_qp, plan_ok)
-                if want is None:
-                    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                        tsqp.inner_engine(par, dtype, nz, m_qp, plan_ok)
-                else:
-                    assert tsqp.inner_engine(par, dtype, nz, m_qp, plan_ok) == want, (
-                        inner, dtype, plan_ok)
+                assert tsqp.inner_engine(par, dtype, nz, m_qp, plan_ok) == want, (
+                    inner, dtype, plan_ok)
     # the mid-size shapes the CUDA kernel would take: banded with a plan,
-    # raising without one
+    # the per-instance ADMM without one, as in the JAX package; a kernel that
+    # refused a shape within the gate would raise
     if (nz, m_qp) in ((40, 92), (61, 123)):
         fused = NLParameters(inner_qp="fused")
         assert tsqp.inner_engine(fused, torch.float32, nz, m_qp, True) == "riccati"
-        with pytest.raises(NotImplementedError, match="shared-memory gate"):
-            tsqp.inner_engine(fused, torch.float32, nz, m_qp, False)
+        assert tsqp.inner_engine(fused, torch.float32, nz, m_qp, False) == "admm"
+        from libmpc_tpu_torch.ops import qp_inner_fused
+
+        supported = qp_inner_fused.supported
+        qp_inner_fused.supported = lambda n, m, dtype: False
+        try:
+            with pytest.raises(NotImplementedError, match="shared-memory gate"):
+                tsqp.inner_engine(fused, torch.float32, 26, 57, False)
+        finally:
+            qp_inner_fused.supported = supported
 
 
 def test_host_reads_are_counted():
