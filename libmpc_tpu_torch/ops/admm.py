@@ -45,6 +45,7 @@ import torch
 
 from ..types import LParameters
 from . import admm_fused, batched_linalg
+from .admm_fused import mm as _mm
 
 # -- OSQP status values (osqp/include/constants.h of OSQP v0.6.3) -----------
 OSQP_SOLVED = 1
@@ -103,16 +104,6 @@ def _inf_norm(v, dim=-1):
     return torch.amax(torch.abs(v), dim=dim)
 
 
-def _mm(X, M):
-    """``X @ M`` for a matrix ``M`` shared by the batch (k, n), or one
-    matrix a lane (B, k, n), where a batch of row vectors ``X`` (B, k) then
-    multiplies its own lane's matrix; two batches of matrices multiply lane
-    by lane."""
-    if M.dim() == 3 and X.dim() == 2:
-        return (X[:, None, :] @ M)[:, 0]
-    return X @ M
-
-
 def _ruiz_equilibration(P, A, q_ref, iters: int):
     """Modified Ruiz equilibration of the KKT-stacked matrix (OSQP scaling.c).
 
@@ -159,7 +150,8 @@ def _ruiz_equilibration(P, A, q_ref, iters: int):
 
 class PreparedQP(NamedTuple):
     """Time-invariant solver state hoisted out of the per-step solve
-    (OSQP's setup-once semantics; ``libmpc_tpu/ops/admm.py:166``)."""
+    (OSQP's setup-once semantics; ``libmpc_tpu/ops/admm.py:166``).  Shapes
+    of a shared (P, A); one setup a lane adds a leading batch axis."""
 
     Ps: torch.Tensor  # (n, n) scaled quadratic cost
     As: torch.Tensor  # (m, n) scaled constraints
@@ -204,16 +196,20 @@ def prepare_qp(P, A, q_ref, eq_mask, loose_mask,
     ``q_ref`` is a representative linear term used only for the cost
     scaling (OSQP computes it from the q present at ``osqp_setup`` and keeps
     it when q is later updated — the same stale-c semantics apply here).
+
+    ``P`` (..., n, n), ``A`` (..., m, n), ``q_ref`` (..., n) and the masks
+    (..., m) may carry a leading batch axis: each instance is then set up on
+    its own (:func:`admm_solve_each`), and every field carries the axis.
     """
     full_precision(P.device)
-    n, m = P.shape[0], A.shape[0]
+    lead, n, m = P.shape[:-2], P.shape[-1], A.shape[-2]
     kw = dict(dtype=P.dtype, device=P.device)
     if params.scaling_iters > 0:
         d, e, c = _ruiz_equilibration(P, A, q_ref, params.scaling_iters)
     else:
-        d, e, c = torch.ones((n,), **kw), torch.ones((m,), **kw), torch.ones((), **kw)
-    Ps = c * (P * d[None, :] * d[:, None])
-    As = A * e[:, None] * d[None, :]
+        d, e, c = torch.ones(lead + (n,), **kw), torch.ones(lead + (m,), **kw), torch.ones(lead, **kw)
+    Ps = c[..., None, None] * (P * d[..., None, :] * d[..., :, None])
+    As = A * e[..., :, None] * d[..., None, :]
     sigma_v, rho_lo, rho_hi = _rho_bounds(P.dtype, params)
     rho_init = torch.clamp(_scalar(params.rho, P), rho_lo, rho_hi)
     M0, Minv0 = _build_kkt_inverse(
@@ -229,6 +225,15 @@ def prepare_qp(P, A, q_ref, eq_mask, loose_mask,
         Ps=Ps, As=As, d=d, e=e, c=c, eq_mask=eq_mask, loose_mask=loose_mask,
         M0=M0, Minv0=Minv0, Mpinv=Mpinv, Mpinv_lo=Mpinv_lo,
     )
+
+
+def _scale_data(prep: PreparedQP, q, l, u):
+    """The scaled (qs, ls, us) of a batch (B, n) / (B, m) under ``prep``'s
+    scalings, shared or one a lane; infinite bounds stay infinite."""
+    qs = prep.c[..., None] * (q * prep.d)
+    ls = torch.where(l <= -INF_BOUND, l, l * prep.e)
+    us = torch.where(u >= INF_BOUND, u, u * prep.e)
+    return qs, ls, us
 
 
 def _polish_prep(P, A, eq_mask):
@@ -858,6 +863,44 @@ def _polish(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters, eq_mask):
     return _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x, nu, active)
 
 
+def _finish(state: _LoopState, prep: PreparedQP, P, A, q, l, u,
+            params: LParameters) -> QPSolution:
+    """The loop's end, for either solver: unscale the state, take the
+    polish where the lane solved, and the objective.  ``P``/``A`` are the
+    unscaled matrices, shared or one a lane as in ``prep``."""
+    d, e, c = prep.d, prep.e, prep.c
+    x = state.x * d
+    y = state.y * e / c[..., None]
+    z = state.z / e
+    pri_res, dua_res = state.pri_res, state.dua_res
+
+    if params.polish:
+        if params.polish_mode == "shared":
+            # a prepared cache built under no-polish params has no pair
+            pair = ((prep.Mpinv, prep.Mpinv_lo) if prep.Mpinv is not None
+                    else _polish_prep(P, A, prep.eq_mask))
+            x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
+                P, A, q, l, u, x, y, z, params, prep.eq_mask, *pair
+            )
+        else:
+            x_p, y_p, z_p, pri_p, dua_p = _polish(
+                P, A, q, l, u, x, y, z, params, prep.eq_mask
+            )
+        ok = (state.status == OSQP_SOLVED) | (state.status == OSQP_SOLVED_INACCURATE)
+        sel = ok[:, None]
+        x = torch.where(sel, x_p, x)
+        y = torch.where(sel, y_p, y)
+        z = torch.where(sel, z_p, z)
+        pri_res = torch.where(ok, pri_p, pri_res)
+        dua_res = torch.where(ok, dua_p, dua_res)
+
+    obj = 0.5 * torch.sum(_mm(x, P) * x, dim=-1) + torch.sum(q * x, dim=-1)
+    return QPSolution(
+        x=x, y=y, z=z, status=state.status, iters=state.iters, obj_val=obj,
+        pri_res=pri_res, dua_res=dua_res,
+    )
+
+
 def admm_solve(
     P: torch.Tensor,
     A: torch.Tensor,
@@ -924,10 +967,7 @@ def admm_solve(
     Ps, As = prepared.Ps, prepared.As
     d, e, c = prepared.d, prepared.e, prepared.c
     eq_mask, loose_mask = prepared.eq_mask, prepared.loose_mask
-    qs = c * (q * d[None, :])
-    # scale bounds, keeping infinities infinite
-    ls = torch.where(l <= -INF_BOUND, l, l * e[None, :])
-    us = torch.where(u >= INF_BOUND, u, u * e[None, :])
+    qs, ls, us = _scale_data(prepared, q, l, u)
 
     sigma_v, rho_lo, rho_hi = _rho_bounds(dtype, params)
     # cold-solve rho escalation (params.cold_rho): a batch with NO warm lane
@@ -985,40 +1025,7 @@ def admm_solve(
         min(params.check_termination, params.maximum_iteration),
     )
 
-    # -- unscale ----------------------------------------------------------
-    x = state.x * d[None, :]
-    y = state.y * e[None, :] / c
-    z = state.z / e[None, :]
-    pri_res, dua_res = state.pri_res, state.dua_res
-
-    if params.polish:
-        if params.polish_mode == "shared":
-            if prepared.Mpinv is None:
-                # prepared cache built under no-polish params
-                mp_hi, mp_lo = _polish_prep(P, A, eq_mask)
-                prepared = prepared._replace(Mpinv=mp_hi, Mpinv_lo=mp_lo)
-            x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
-                P, A, q, l, u, x, y, z, params, eq_mask, prepared.Mpinv,
-                prepared.Mpinv_lo,
-            )
-        else:
-            x_p, y_p, z_p, pri_p, dua_p = _polish(
-                P, A, q, l, u, x, y, z, params, eq_mask
-            )
-        ok = (state.status == OSQP_SOLVED) | (state.status == OSQP_SOLVED_INACCURATE)
-        sel = ok[:, None]
-        x = torch.where(sel, x_p, x)
-        y = torch.where(sel, y_p, y)
-        z = torch.where(sel, z_p, z)
-        pri_res = torch.where(ok, pri_p, pri_res)
-        dua_res = torch.where(ok, dua_p, dua_res)
-
-    obj = 0.5 * torch.sum((x @ P) * x, dim=-1) + torch.sum(q * x, dim=-1)
-
-    sol = QPSolution(
-        x=x, y=y, z=z, status=state.status, iters=state.iters, obj_val=obj,
-        pri_res=pri_res, dua_res=dua_res,
-    )
+    sol = _finish(state, prepared, P, A, q, l, u, params)
     if unbatched:
         sol = QPSolution(*(t[0] for t in sol))
     return sol
@@ -1046,31 +1053,15 @@ def _each_block(state: _LoopState, data: _EachData, params: LParameters,
     termination check.  Returns (state, adaptive-rho verdict, rho estimate),
     all new tensors: no input is written."""
     sigma_v, _, _ = _rho_bounds(data.P.dtype, params)
-    refine = data.P.dtype == torch.float32 and params.x_refine
-    alpha = params.alpha
-    A, qs, ls, us = data.A, data.qs, data.ls, data.us
-    rho_vec = _rho_vec_of(state.rho[:, None], data.eq_mask, data.loose_mask)
-    M, Minv = state.M, state.Minv
-    x, z, y = state.x, state.z, state.y
-    for _ in range(check_every):
-        # x-update: (P + sigma I + A'RA) xt = sigma x - q + A'(R z - y)
-        rhs = sigma_v * x - qs + _mm(rho_vec * z - y, A)
-        xt = _mm(rhs, Minv)  # Minv symmetric
-        if refine:
-            # one refinement pass against M recovers the digits the
-            # explicit float32 inverse loses
-            xt = xt + _mm(rhs - _mm(xt, M), Minv)
-        zt = _mm(xt, A.mT)
-        x_new = alpha * xt + (1.0 - alpha) * x
-        z_relax = alpha * zt + (1.0 - alpha) * z
-        z_unc = z_relax + y / rho_vec
-        z = torch.clamp(z_unc, min=ls, max=us)
-        # y is exactly zero on rows where the projection did not clip
-        clipped = (z_unc < ls) | (z_unc > us)
-        y = torch.where(clipped, y + rho_vec * (z_relax - z), 0.0)
-        x = x_new
+    x, z, y = admm_fused.plain_iterations(
+        state.x, state.z, state.y, None, data.qs, data.ls, data.us, data.A,
+        state.M, state.Minv, _rho_vec_of(state.rho[:, None], data.eq_mask, data.loose_mask),
+        sigma=sigma_v, alpha=params.alpha, k_iters=check_every,
+        refine=data.P.dtype == torch.float32 and params.x_refine,
+    )
     state = state._replace(x=x, z=z, y=y, iters=state.iters + check_every)
-    return _termination_check(state, data.P, A, qs, ls, us, data.d, data.e, data.c, params)
+    return _termination_check(state, data.P, data.A, data.qs, data.ls, data.us,
+                              data.d, data.e, data.c, params)
 
 
 def _bucket(n: int) -> int:
@@ -1085,9 +1076,13 @@ class _BlockGraph:
     (a float32 UGV subproblem at the 500 cap runs 20 blocks of 25
     iterations).  The state and the lanes' data live in the graph's own
     tensors and a replay advances the state in place; lanes past the
-    running count are padding, copies of lane 0 whose results nothing reads
-    (each lane's arithmetic is its own).  Graphs are kept for the process,
-    one a (size, shapes, dtype, device, parameters)."""
+    running count are padding, copies of lane 0 whose results nothing reads.
+    A lane's result still depends on the bucket it runs in: cuBLAS picks
+    its batched-product kernels by batch size, so on the card a lane's
+    rounding changes with the number of lanes still running (about 1e-9 in
+    float64 at the UGV shape, and enough in float32 to move a closed loop's
+    fractions; on the CPU the lanes are bitwise independent).  Graphs are
+    kept for the process, one a (size, shapes, dtype, device, parameters)."""
 
     _cache: dict = {}
 
@@ -1120,10 +1115,13 @@ class _BlockGraph:
             self.need_update, self.rho_est = self.advance(params, check_every)
 
     def advance(self, params, check_every):
-        """One block on the graph's tensors, the state written back in place."""
+        """One block on the graph's tensors, the state written back in place
+        (the fields the block changed: rho, M and Minv it returns as they
+        were, and refactorizations write them in place between replays)."""
         new, need_update, rho_est = _each_block(self.state, self.data, params, check_every)
         for buf, val in zip(self.state, new):
-            buf.copy_(val)
+            if val is not buf:
+                buf.copy_(val)
         return need_update, rho_est
 
     def load(self, state, data):
@@ -1140,9 +1138,16 @@ class _BlockGraph:
         return self.state, self.need_update, self.rho_est
 
 
+def _use_graphs(device) -> bool:
+    """Whether :func:`_admm_loop_each` replays its blocks as CUDA graphs:
+    on the card, where a block's launches cost the host more than the
+    device's work; the CPU runs them eagerly."""
+    return device.type == "cuda"
+
+
 def _admm_loop_each(P, A, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
                     rho0, M0, Minv0, params: LParameters, n_iters: int,
-                    check_every: int, graphs: Optional[bool] = None) -> _LoopState:
+                    check_every: int) -> _LoopState:
     """The scaled-problem ADMM iterations of :func:`admm_solve_each`: one
     (P, A), scaling, rho and KKT inverse a lane (``P`` (B, n, n), ``A``
     (B, m, n), ``d`` (B, n), ``e`` (B, m), ``c``/``rho0`` (B,), ``M0``/
@@ -1160,14 +1165,14 @@ def _admm_loop_each(P, A, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
     these).  One read from the device a block: the counts of finished lanes
     and of refactorizations.
 
-    ``graphs`` (default: on CUDA tensors) replays each block as a CUDA graph
-    (:class:`_BlockGraph`) instead of launching its kernels one by one; the
-    kernels, and so the arithmetic of each lane, are the same.
+    On the card (:func:`_use_graphs`) each block replays as a CUDA graph
+    (:class:`_BlockGraph`) instead of launching its kernels one by one.  The
+    graph's batch is the running lanes padded to a power of two, and cuBLAS
+    chooses its kernels by batch, so a lane's rounding there is not that of
+    the eager loop's batch (see :class:`_BlockGraph`).
     """
     B = qs.shape[0]
     dtype, dev = P.dtype, P.device
-    if graphs is None:
-        graphs = dev.type == "cuda"
     sigma_v, _, _ = _rho_bounds(dtype, params)
 
     def full(v, dt):
@@ -1190,7 +1195,7 @@ def _admm_loop_each(P, A, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
     out = state
     lanes = torch.arange(B, device=dev)  # the original index of each running lane
     graph = None
-    if graphs:
+    if _use_graphs(dev):
         graph = _BlockGraph.get(_bucket(B), state, data, params, check_every)
         graph.load(state, data)
     n_blocks = max(1, (n_iters + check_every - 1) // check_every)
@@ -1253,7 +1258,6 @@ def admm_solve_each(
     warm_x: Optional[torch.Tensor] = None,
     warm_y: Optional[torch.Tensor] = None,
     eq_mask: Optional[torch.Tensor] = None,
-    graphs: Optional[bool] = None,
 ) -> QPSolution:
     """Solve a batch of QPs, each with its own (P, A): lane b computes what
     :func:`admm_solve` computes for instance b alone (the JAX package's
@@ -1268,8 +1272,6 @@ def admm_solve_each(
       warm_x, warm_y: optional warm-start primal/dual, shaped like q / l.
       eq_mask: optional (m,) or (B, m) bool marking structural equality
         rows; each lane's own ``l == u`` rows when omitted.
-      graphs: replay each block of iterations as a CUDA graph (default:
-        on CUDA tensors; see :func:`_admm_loop_each`).
 
     Everything the shared-(P, A) solve reduces over the batch is the lane's
     own here: the equality and loose masks, the cost-scaling reference
@@ -1296,24 +1298,11 @@ def admm_solve_each(
     loose_mask = (l <= -INF_BOUND) & (u >= INF_BOUND)
 
     # -- setup, each lane its own (prepare_qp of a batch of one) ----------
-    if params.scaling_iters > 0:
-        d, e, c = _ruiz_equilibration(P, A, torch.abs(q), params.scaling_iters)
-    else:
-        d = torch.ones((B, n), dtype=dtype, device=dev)
-        e = torch.ones((B, m), dtype=dtype, device=dev)
-        c = torch.ones((B,), dtype=dtype, device=dev)
-    Ps = c[:, None, None] * (P * d[:, None, :] * d[:, :, None])
-    As = A * e[:, :, None] * d[:, None, :]
-    qs = c[:, None] * (q * d)
-    # scale bounds, keeping infinities infinite
-    ls = torch.where(l <= -INF_BOUND, l, l * e)
-    us = torch.where(u >= INF_BOUND, u, u * e)
-
-    sigma_v, rho_lo, rho_hi = _rho_bounds(dtype, params)
+    prep = prepare_qp(P, A, torch.abs(q), eq_mask, loose_mask, params)
+    d, e, c = prep.d, prep.e, prep.c
+    qs, ls, us = _scale_data(prep, q, l, u)
+    _, rho_lo, rho_hi = _rho_bounds(dtype, params)
     rho0 = torch.clamp(_scalar(params.rho, P), rho_lo, rho_hi).expand(B).contiguous()
-    M0, Minv0 = _build_kkt_inverse(
-        Ps, As, _rho_vec_of(rho0[:, None], eq_mask, loose_mask), sigma_v
-    )
 
     zeros = lambda k: torch.zeros((B, k), dtype=dtype, device=dev)
     if warm_x is not None and params.enable_warm_start:
@@ -1323,42 +1312,14 @@ def admm_solve_each(
         x0, y0 = zeros(n), zeros(m)
 
     state = _admm_loop_each(
-        Ps, As, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
-        rho0, M0, Minv0, params, params.maximum_iteration,
-        min(params.check_termination, params.maximum_iteration), graphs,
+        prep.Ps, prep.As, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
+        rho0, prep.M0, prep.Minv0, params, params.maximum_iteration,
+        min(params.check_termination, params.maximum_iteration),
     )
-
-    # -- unscale ----------------------------------------------------------
-    x = state.x * d
-    y = state.y * e / c[:, None]
-    z = state.z / e
-    pri_res, dua_res = state.pri_res, state.dua_res
-
-    if params.polish:
-        if params.polish_mode == "shared":
-            x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
-                P, A, q, l, u, x, y, z, params, eq_mask,
-                *_polish_prep(P, A, eq_mask),
-            )
-        else:
-            x_p, y_p, z_p, pri_p, dua_p = _polish(
-                P, A, q, l, u, x, y, z, params, eq_mask
-            )
-        ok = (state.status == OSQP_SOLVED) | (state.status == OSQP_SOLVED_INACCURATE)
-        sel = ok[:, None]
-        x = torch.where(sel, x_p, x)
-        y = torch.where(sel, y_p, y)
-        z = torch.where(sel, z_p, z)
-        pri_res = torch.where(ok, pri_p, pri_res)
-        dua_res = torch.where(ok, dua_p, dua_res)
-
-    obj = 0.5 * torch.sum(_mm(x, P) * x, dim=-1) + torch.sum(q * x, dim=-1)
+    sol = _finish(state, prep, P, A, q, l, u, params)
     if admm_solve_each.trace is not None:
-        admm_solve_each.trace.append((state.iters, state.status))
-    return QPSolution(
-        x=x, y=y, z=z, status=state.status, iters=state.iters, obj_val=obj,
-        pri_res=pri_res, dua_res=dua_res,
-    )
+        admm_solve_each.trace.append((sol.iters, sol.status))
+    return sol
 
 
 admm_solve_each.trace = None

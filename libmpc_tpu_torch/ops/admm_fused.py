@@ -49,24 +49,37 @@ from . import _build
 SMEM_LIMIT_BYTES = 232448  # dynamic shared memory one Hopper block can use
 
 
+def mm(X, M):
+    """``X @ M`` for a matrix ``M`` shared by the batch (k, n), or one
+    matrix a lane (B, k, n), where a batch of row vectors ``X`` (B, k) then
+    multiplies its own lane's matrix; two batches of matrices multiply lane
+    by lane."""
+    if M.dim() == 3 and X.dim() == 2:
+        return (X[:, None, :] @ M)[:, 0]
+    return X @ M
+
+
 def plain_iterations(x, z, y, done, q, l, u, A, M, Minv, rho_vec, *,
                      sigma: float, alpha: float, k_iters: int,
                      refine: bool = True):
     """``k_iters`` ADMM iterations in plain PyTorch (the kernel's twin).
 
-    Shapes: x/q (B, n); z/y/l/u (B, m); done (B,) bool; A (m, n);
-    M/Minv (n, n); rho_vec (m,).  Returns the updated (x, z, y).
+    Shapes: x/q (B, n); z/y/l/u (B, m); done (B,) bool, or None where every
+    lane runs; A (m, n), M/Minv (n, n) and rho_vec (m,) shared by the batch,
+    or A (B, m, n), M/Minv (B, n, n) and rho_vec (B, m), one a lane (the
+    per-instance solve, ``admm.admm_solve_each``).  Returns the updated
+    (x, z, y).
     """
-    frozen = done[:, None]
+    At = A.mT
     for _ in range(k_iters):
         # x-update: (P + sigma I + A' R A) xt = sigma x - q + A'(R z - y)
-        rhs = sigma * x - q + (rho_vec * z - y) @ A
-        xt = rhs @ Minv  # Minv symmetric
+        rhs = sigma * x - q + mm(rho_vec * z - y, A)
+        xt = mm(rhs, Minv)  # Minv symmetric
         if refine:
             # one refinement pass against M recovers the digits the
             # explicit float32 inverse loses
-            xt = xt + (rhs - xt @ M) @ Minv
-        zt = xt @ A.T
+            xt = xt + mm(rhs - mm(xt, M), Minv)
+        zt = mm(xt, At)
         x_new = alpha * xt + (1.0 - alpha) * x
         z_relax = alpha * zt + (1.0 - alpha) * z
         z_unc = z_relax + y / rho_vec
@@ -74,9 +87,13 @@ def plain_iterations(x, z, y, done, q, l, u, A, M, Minv, rho_vec, *,
         # y is exactly zero on rows where the projection did not clip
         clipped = (z_unc < l) | (z_unc > u)
         y_new = torch.where(clipped, y + rho_vec * (z_relax - z_new), 0.0)
-        x = torch.where(frozen, x, x_new)
-        z = torch.where(frozen, z, z_new)
-        y = torch.where(frozen, y, y_new)
+        if done is None:
+            x, z, y = x_new, z_new, y_new
+        else:
+            frozen = done[:, None]
+            x = torch.where(frozen, x, x_new)
+            z = torch.where(frozen, z, z_new)
+            y = torch.where(frozen, y, y_new)
     return x, z, y
 
 
@@ -231,7 +248,8 @@ def fused_iterations(x, z, y, done, q, l, u, A, M, Minv, rho_vec, *,
                      refine: bool = True):
     """Run ``k_iters`` ADMM iterations for the whole batch.
 
-    Shapes as :func:`plain_iterations`.  CPU tensors run the plain twin; CUDA
+    Shapes as :func:`plain_iterations`'s shared form, ``done`` a tensor.
+    CPU tensors run the plain twin; CUDA
     tensors launch the kernel (float32 or float64) at :func:`layout`'s
     choice through :func:`launch`.
     """

@@ -205,7 +205,7 @@ def test_trace_records_each_call():
     assert torch.equal(iters, sol.iters) and torch.equal(status, sol.status)
 
 
-def test_block_graph_bookkeeping_gives_the_eager_loop():
+def test_block_graph_bookkeeping_gives_the_eager_loop(monkeypatch):
     """The CUDA-graph path's bookkeeping (lanes padded to a power of two,
     the running lanes gathered into another graph's tensors, the
     refactorizations written in place) with each replay stood in for by the
@@ -224,13 +224,10 @@ def test_block_graph_bookkeeping_gives_the_eager_loop():
     par = dataclasses.replace(tsqp._qp_params(False), polish_active_cap=4)
     qp = [torch.as_tensor(a) for a in qp_batch(10, 24, LANES)]
     eq = torch.as_tensor(np.arange(24) < N_EQ)
-    eager = tadmm.admm_solve_each(*qp, par, eq_mask=eq, graphs=False)
-    graph_class = tadmm._BlockGraph
-    tadmm._BlockGraph = EagerGraph
-    try:
-        replayed = tadmm.admm_solve_each(*qp, par, eq_mask=eq, graphs=True)
-    finally:
-        tadmm._BlockGraph = graph_class
+    eager = tadmm.admm_solve_each(*qp, par, eq_mask=eq)
+    monkeypatch.setattr(tadmm, "_BlockGraph", EagerGraph)
+    monkeypatch.setattr(tadmm, "_use_graphs", lambda device: True)
+    replayed = tadmm.admm_solve_each(*qp, par, eq_mask=eq)
     assert {key[0] for key in EagerGraph._cache} >= {8, 4, 2}  # 6 lanes, then fewer
     for f in ("x", "y", "z", "status", "iters"):
         assert torch.equal(getattr(replayed, f), getattr(eager, f)), f

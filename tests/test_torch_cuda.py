@@ -732,7 +732,7 @@ def test_ugv_controller_two_steps_float32(cuda):
     assert (r.statuses == int(lt.ResultStatus.SUCCESS)).all(), r.statuses
 
 
-def test_admm_solve_each_graph_replays_match_eager_launches(cuda):
+def test_admm_solve_each_graph_replays_match_eager_launches(cuda, monkeypatch):
     """The per-instance loop's blocks replayed as CUDA graphs against the
     same blocks launched one kernel at a time, float64 at the UGV shape:
     equal statuses and iteration counts, x within 1e-9 (a graph's batch is
@@ -746,8 +746,9 @@ def test_admm_solve_each_graph_replays_match_eager_launches(cuda):
     args = [d(t) for t in (P, A, q, l, u)]
     kw = dict(params=sqp._qp_params(False), eq_mask=kw["eq_mask"],
               warm_x=d(kw["warm_x"]), warm_y=d(kw["warm_y"]))
-    graphed = admm.admm_solve_each(*args, graphs=True, **kw)
-    eager = admm.admm_solve_each(*args, graphs=False, **kw)
+    graphed = admm.admm_solve_each(*args, **kw)
+    monkeypatch.setattr(admm, "_use_graphs", lambda device: False)
+    eager = admm.admm_solve_each(*args, **kw)
     assert torch.equal(graphed.status, eager.status)
     assert torch.equal(graphed.iters, eager.iters)
     torch.testing.assert_close(graphed.x, eager.x, rtol=1e-9, atol=1e-9)
