@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's four main paths after building the five hand-written CUDA
+Drives the port's main paths after building the five hand-written CUDA
 kernels from ``libmpc_tpu_torch/csrc`` and holding each against its plain
 PyTorch twin on the card:
 
@@ -21,7 +21,11 @@ PyTorch twin on the card:
   lanes, 150 steps as five chained 30-step rollouts, float32, the shipped
   ``inner_qp="admm"``, ``hessian_reg="eigh"`` settings): the per-instance
   inner ADMM, whose KKT inverses, polish capacitances and second-order
-  corrections go through K2.
+  corrections go through K2;
+* the batch-sharded fleets of ``libmpc_tpu_torch.parallel`` over
+  ``torch.distributed``: ``LMPCFleet`` on the quadrotor loop (K1, K2) and
+  ``NLMPCFleet`` on the Van der Pol loop (K3, K2), as one NCCL rank and as
+  two gloo ranks sharing the card.
 
 Phases, one line each (any failure raises and the script exits non-zero):
 
@@ -68,11 +72,23 @@ Phases, one line each (any failure raises and the script exits non-zero):
     QPs, K2 against its twin substituted (statuses and iterations equal, x
     within 1e-9); K2 against its twin and timed at (256,61,61), (256,40,40),
     (256,24,24) in both types
-16. times: kernels, twins and library calls with CUDA events, each kernel's
+16. fleet: one NCCL rank on the card runs the quadrotor ``LMPCFleet``
+    (B=16384 x 16 steps) and the Van der Pol ``NLMPCFleet`` (B=4096 x 4
+    steps), float32, each beside the plain controller on the same inputs
+    (commands equal to the bit at every step, stats against the controller's
+    statuses, success >= 0.999, K1/K2/K3 launches counted), then
+    ``save_fleet``/``load_fleet`` into a fresh fleet (the next step equal to
+    the bit); then the script re-runs itself as two gloo ranks sharing the
+    card (``--fleet-rank``): quadrotor B=16384 x 4 steps and Van der Pol
+    B=1024 x 2 steps, each rank's rows equal to the plain controller on those
+    rows, the gathered result the shards' concatenation, the stats the sums
+    of the halves on both ranks; a ``fleet`` line with solves/s and the
+    collectives' ms a step
+17. times: kernels, twins and library calls with CUDA events, each kernel's
     bound, steady-state and closed-loop solves/s of the three paths
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-ugv times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
+ugv fleet times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
 ``K1-speed`` line with its time at the main path's batches in both types,
 each tier forced, the bound, the layout, the L2 bytes a launch and their
 rate, registers and spills (``--sweep-k1`` adds a ``K1-sweep`` line: the
@@ -3093,7 +3109,270 @@ def phase_profile_ugv(torch, lt, host, steps=2):
              for k, v in fam.items() if v > 0})
 
 
-PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "ugv", "times")
+# -- the batch-sharded fleets (libmpc_tpu_torch/parallel) -----------------------
+B_FLEET_NL, K_FLEET_NL = 4096, 4  # Van der Pol fleet, one NCCL rank
+K_FLEET_2R, B_FLEET_NL_2R, K_FLEET_NL_2R = 4, 1024, 2  # two gloo ranks sharing the card
+FLEET_COLLECTIVE_S = 60  # every collective of the fleet phase
+FLEET_RANKS_S = 300  # the two rank processes, start-up included
+
+
+def same_cmds(torch, a, b) -> bool:
+    """Bitwise-equal commands, NaN lanes (infeasible) matching NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all().item())
+
+
+def stats_tuple(s):
+    return (s.n_total, s.n_success, s.n_max_iteration, s.n_infeasible, s.n_error,
+            s.n_unknown, s.mean_iterations, s.max_iterations)
+
+
+def status_counts(status):
+    """(n, SUCCESS, MAX_ITERATION, INFEASIBLE, ERROR, UNKNOWN) of a status vector."""
+    return (int(status.numel()),) + tuple(int((status == s).sum().item()) for s in range(5))
+
+
+def fleet_against_plain(torch, lt, par, mesh, kind, B, K, mods):
+    """One closed loop through a fleet of ``kind`` ("lmpc": the quadrotor of
+    the lmpc phase, seed 7; "nlmpc": Van der Pol with the nlmpc phase's
+    settings, seed 11) on the whole batch, then one through the plain
+    controller on this rank's rows of the same inputs.  Returns the per-step
+    commands, statuses and stats, both walls, the fleet loop's launches, the
+    loop's last (x, u) and the fleet."""
+    dev, f32 = mesh.device, torch.float32
+    rows = mesh.rows(B)
+    if kind == "lmpc":
+        Ad, Bd = quadrotor_model()
+        Ad_t, Bd_t = (torch.as_tensor(a, dtype=f32, device=dev) for a in (Ad, Bd))
+        x0_h, noise_h = closed_loop_inputs(B, K)
+        make = lambda: quadrotor_controller(lt, f32, dev, closed_loop_params(lt))
+        plant = lambda x, u, k, nz: x @ Ad_t.T + u @ Bd_t.T + nz[k]
+        nu, fleet_cls = 4, par.LMPCFleet
+    else:
+        x0_h, noise_h = vdp_closed_loop_inputs(B, K)
+        make = lambda: vdp_controller(lt, f32, dev, vdp_params(lt))
+        plant = lambda x, u, k, nz: vdp_plant(torch, nz)(x, u, k)
+        nu, fleet_cls = 1, par.NLMPCFleet
+    x0 = torch.as_tensor(x0_h, dtype=f32, device=dev)
+    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
+    fleet = fleet_cls(make(), mesh)
+    out = {"fleet_cmd": [], "fleet_status": [], "stats": [], "plain_cmd": [],
+           "plain_status": []}
+
+    def loop(opt, x, nz, cmd_key, status_key):
+        u = torch.zeros((x.shape[0], nu), dtype=f32, device=dev)
+        for k in range(K):
+            r = opt(x, u)
+            out[cmd_key].append(r.cmd)
+            out[status_key].append(r.status)
+            u = r.cmd
+            x = plant(x, u, k, nz)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return x, u
+
+    def fleet_step(x, u):
+        r, s = fleet.optimize(x, u)
+        out["stats"].append(s)
+        return r
+
+    # one untimed step of each beside the loops pays the one-time costs (the
+    # collectives' first use, the controller's cache, first launches)
+    u0 = torch.zeros((B, nu), dtype=f32, device=dev)
+    fleet_cls(make(), mesh).optimize(x0, u0)
+    make().optimize(x0[rows], u0[rows])
+    reset_counts(*mods)
+    t0 = time.perf_counter()
+    out["x"], out["u"] = loop(fleet_step, x0, noise, "fleet_cmd", "fleet_status")
+    out["fleet_wall"] = time.perf_counter() - t0
+    out["launches"] = read_counts(*mods)
+    plain = make()
+    t0 = time.perf_counter()
+    loop(plain.optimize, x0[rows], noise[:, rows], "plain_cmd", "plain_status")
+    out["plain_wall"] = time.perf_counter() - t0
+    out["fleet"], out["make"], out["rows"] = fleet, make, rows
+    return out
+
+
+def collective_ms(torch, fleet_mod, mesh, r, reps=20):
+    """Host ms of one step's collectives (the stats reductions and the result
+    gather) on this rank's rows of the loop's last step, the device
+    synchronised."""
+    from libmpc_tpu_torch.types import Result
+
+    cmd, status = r["plain_cmd"][-1], r["plain_status"][-1]
+    res = Result(cmd=cmd, cost=cmd[:, 0], status=status, solver_status=status,
+                 is_feasible=status == 0)
+    sync = lambda: torch.cuda.synchronize(mesh.device) if mesh.device.type == "cuda" else None
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fleet_mod._local_stats(status, status, mesh, 0.0)
+        fleet_mod._gather_result(mesh, res)
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def fleet_resume_equal(torch, par, checkpoint, r, path):
+    """save_fleet after the loop, load_fleet into a fresh fleet over a fresh
+    controller, then one more step of each: equal to the bit."""
+    checkpoint.save_fleet(r["fleet"], str(path))
+    resumed = type(r["fleet"])(r["make"](), r["fleet"].mesh)
+    checkpoint.load_fleet(resumed, str(path))
+    a = r["fleet"].optimize(r["x"], r["u"])[0].cmd
+    b = resumed.optimize(r["x"], r["u"])[0].cmd
+    return same_cmds(torch, a, b)
+
+
+def fleet_rank_main(rank, world, init, out_dir) -> int:
+    """One of the two gloo ranks of the fleet phase: the quadrotor fleet
+    (B=16384 x 4 steps) and the Van der Pol fleet (B=1024 x 2 steps), each
+    rank's rows against the plain controller on those rows; writes
+    ``rank<r>.npz``."""
+    import torch
+
+    from libmpc_tpu_torch import parallel as par
+    from libmpc_tpu_torch.parallel import fleet as fleet_mod
+    import libmpc_tpu_torch as lt
+    from libmpc_tpu_torch.ops import admm_fused, batched_linalg
+    from libmpc_tpu_torch.ops import qp_inner_fused as qpf
+    from libmpc_tpu_torch.ops import trajectory_sweeps as ts
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    mods = (admm_fused, batched_linalg, qpf, ts)
+    par.init_distributed(init, world, rank, backend="gloo", timeout=FLEET_COLLECTIVE_S)
+    mesh = par.make_mesh()
+    res = {}
+    for kind, B, K in (("lmpc", B_MAIN, K_FLEET_2R), ("nlmpc", B_FLEET_NL_2R, K_FLEET_NL_2R)):
+        r = fleet_against_plain(torch, lt, par, mesh, kind, B, K, mods)
+        rows = r["rows"]
+        res[f"{kind}_equal"] = np.array([same_cmds(torch, f[rows], p) for f, p in
+                                         zip(r["fleet_cmd"], r["plain_cmd"])])
+        res[f"{kind}_gathered"] = torch.stack(r["fleet_cmd"]).cpu().numpy()
+        res[f"{kind}_plain"] = torch.stack(r["plain_cmd"]).cpu().numpy()
+        res[f"{kind}_stats"] = np.array([stats_tuple(s) for s in r["stats"]], float)
+        res[f"{kind}_plain_counts"] = np.array([status_counts(s) for s in r["plain_status"]])
+        res[f"{kind}_walls"] = np.array([r["fleet_wall"], r["plain_wall"]])
+        res[f"{kind}_collective_ms"] = np.array(collective_ms(torch, fleet_mod, mesh, r))
+        del r
+    torch.distributed.destroy_process_group()
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    return 0
+
+
+def spawn_fleet_ranks(world, tmp):
+    """Re-run this script as ``world`` gloo ranks on the card (after this
+    process built the kernel library, so the ranks load it); wait for them
+    within ``FLEET_RANKS_S`` and return each rank's record."""
+    procs, logs = [], []
+    for r in range(world):
+        log = open(tmp / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-rank", str(r),
+             "--fleet-world", str(world), "--fleet-init", f"file://{tmp / 'gloo_store'}",
+             "--fleet-out", str(tmp)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+    end = time.monotonic() + FLEET_RANKS_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        tail = (tmp / f"rank{r}.log").read_text()[-2000:]
+        require(p.returncode == 0, f"fleet rank {r} exited {p.returncode}:\n{tail}")
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+
+
+def phase_fleet(torch, lt, card, mods):
+    """The fleets: one NCCL rank on the card (the quadrotor at B=16384 x 16
+    steps and Van der Pol at B=4096 x 4 steps, each against the plain
+    controller: commands equal to the bit, stats against the controller's
+    statuses, success >= 0.999; save_fleet/load_fleet resumes to the bit),
+    then two gloo ranks sharing the card (each rank's rows against the plain
+    controller on those rows, the gathered result the concatenation of the
+    shards, the stats global on both ranks)."""
+    import tempfile
+
+    from libmpc_tpu_torch import parallel as par
+    from libmpc_tpu_torch.parallel import fleet as fleet_mod
+    from libmpc_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    fields, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        tmp = Path(tmp)
+        par.init_distributed(f"file://{tmp / 'nccl_store'}", 1, 0, backend="nccl",
+                             timeout=FLEET_COLLECTIVE_S)
+        mesh = par.make_mesh()
+        require(mesh.backend == "nccl" and mesh.device.type == "cuda",
+                f"one NCCL rank on the card, got {mesh}")
+        for kind, B, K in (("lmpc", B_MAIN, K_MAIN), ("nlmpc", B_FLEET_NL, K_FLEET_NL)):
+            r = fleet_against_plain(torch, lt, par, mesh, kind, B, K, mods)
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            diff = max((f.float() - p.float()).abs().nan_to_num(0.0).max().item()
+                       for f, p in zip(r["fleet_cmd"], r["plain_cmd"]))
+            equal = all(same_cmds(torch, f, p) for f, p in zip(r["fleet_cmd"], r["plain_cmd"]))
+            stats_ok = all(s.n_total == B and s.n_success == int((p == 0).sum().item())
+                           for s, p in zip(r["stats"], r["plain_status"]))
+            frac = float(torch.stack(r["fleet_status"]).eq(0).float().mean().item())
+            resumed = fleet_resume_equal(torch, par, checkpoint, r, tmp / f"{kind}_fleet.npz")
+            coll = collective_ms(torch, fleet_mod, mesh, r)
+            fields.update({
+                f"{kind}_B": B, f"{kind}_steps": K,
+                f"{kind}_fleet_solves_per_s": f"{B * K / r['fleet_wall']:.1f}",
+                f"{kind}_plain_solves_per_s": f"{B * K / r['plain_wall']:.1f}",
+                f"{kind}_max_abs_diff": diff, f"{kind}_success_frac": f"{frac:.6f}",
+                f"{kind}_collective_ms": f"{coll:.3f}", f"{kind}_resumed_equal": resumed})
+            require(equal, f"{kind} fleet commands equal the controller's at every step")
+            require(stats_ok, f"{kind} fleet stats: n_total {B}, n_success the controller's")
+            require(frac >= 0.999, f"{kind} fleet success fraction {frac} >= 0.999")
+            require(resumed, f"{kind} fleet resumed from save_fleet/load_fleet equals the "
+                             "uninterrupted one")
+            del r
+        require(launches["admm_fused"] > 0 and launches["chol_inverse"] > 0
+                and launches["qp_inner"] > 0, f"the fleet path launched K1, K2, K3: {launches}")
+        torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        two = spawn_fleet_ranks(2, tmp)
+        for kind, B, K in (("lmpc", B_MAIN, K_FLEET_2R), ("nlmpc", B_FLEET_NL_2R, K_FLEET_NL_2R)):
+            require(all(t[f"{kind}_equal"].all() for t in two),
+                    f"two gloo ranks: each {kind} shard equals the controller on its rows")
+            concat = np.concatenate([t[f"{kind}_plain"] for t in two], axis=1)
+            require(all(np.array_equal(t[f"{kind}_gathered"], concat, equal_nan=True)
+                        for t in two), f"{kind} gathered result is the shards' concatenation")
+            counts = sum(t[f"{kind}_plain_counts"] for t in two)
+            for t in two:
+                require(np.array_equal(t[f"{kind}_stats"][:, :6], counts),
+                        f"{kind} stats on every rank are the sums of the halves")
+                require(np.array_equal(t[f"{kind}_stats"], two[0][f"{kind}_stats"]),
+                        f"{kind} stats equal on both ranks")
+            walls = np.max([t[f"{kind}_walls"] for t in two], axis=0)
+            fields.update({
+                f"gloo2_{kind}_B": B, f"gloo2_{kind}_steps": K,
+                f"gloo2_{kind}_fleet_solves_per_s": f"{B * K / walls[0]:.1f}",
+                f"gloo2_{kind}_plain_half_solves_per_s": f"{B // 2 * K / walls[1]:.1f}",
+                f"gloo2_{kind}_collective_ms": f"{max(float(t[f'{kind}_collective_ms']) for t in two):.3f}"})
+    phase("fleet", card=repr(card), **fields,
+          launches_admm_fused=launches["admm_fused"],
+          launches_chol_inverse=launches["chol_inverse"],
+          launches_qp_inner=launches["qp_inner"],
+          wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "ugv", "fleet", "times")
 
 
 def main(argv=None) -> int:
@@ -3121,7 +3400,15 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep-k1", action="store_true",
                     help="with k1: the L2 probe, K1's tiers at more batches, every staged "
                          "tile and ring depth")
+    ap.add_argument("--fleet-rank", type=int, default=None,
+                    help="run as this gloo rank of the fleet phase (the phase spawns them)")
+    ap.add_argument("--fleet-world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-out", default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
+    if opts.fleet_rank is not None:
+        return fleet_rank_main(opts.fleet_rank, opts.fleet_world, opts.fleet_init,
+                               opts.fleet_out)
     want = set(opts.phases.split(","))
     if not want <= set(PHASES):
         ap.error(f"unknown phase in {opts.phases!r}")
@@ -3180,6 +3467,8 @@ def main(argv=None) -> int:
         launches_ugv, _, ugv_sum = phase_main_ugv(torch, lt, admm, batched_linalg, host, mods)
         phase_ugv_engine_f64(torch, lt, admm, batched_linalg, sqp)
         k2_ugv = phase_k2_ugv(torch, batched_linalg, card)
+    if "fleet" in want:
+        launches_fleet = phase_fleet(torch, lt, card, mods)
     if opts.profile and "lmpc" in want:
         phase_profile_lmpc(torch, lt, host)
     if opts.profile and "nlmpc" in want:
@@ -3210,7 +3499,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: ran only {sorted(want)}; no result line", flush=True)
         return 0
 
-    paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc, "ugv": launches_ugv}
+    paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc, "ugv": launches_ugv,
+             "fleet": launches_fleet}
 
     def entry(name, source, replaces, err, **extra):
         ms, plain, bound, by, lib = times[name]

@@ -9,9 +9,9 @@ banded factorization and solve sweeps run in hand-written CUDA kernels on an
 NVIDIA H100 (float32 or float64), and in plain PyTorch on the CPU.
 Controllers run on the CUDA card unless built with ``device="cpu"``.
 The JAX package ``libmpc_tpu`` is the reference this port is held against;
-this package imports neither it nor JAX.  Not ported yet: the SQP's
-``inner_qp="admm"`` engine, fleets, checkpoints and the compatibility
-surface.
+this package imports neither it nor JAX.  Fleets split a batch over the
+ranks of a ``torch.distributed`` process group (``parallel/``).  Not ported
+yet: the row-sharded QP (``solve_sharded``) and the compatibility surface.
 """
 
 from .dims import LDims, NLDims
@@ -74,3 +74,23 @@ __all__ = [
     "default_dtype",
     "set_default_dtype",
 ]
+
+# the fleets import torch.distributed, so they load on first use
+_LAZY = {
+    "LMPCFleet": ("libmpc_tpu_torch.parallel.fleet", "LMPCFleet"),
+    "NLMPCFleet": ("libmpc_tpu_torch.parallel.fleet", "NLMPCFleet"),
+    "FleetStats": ("libmpc_tpu_torch.parallel.fleet", "FleetStats"),
+    "make_mesh": ("libmpc_tpu_torch.parallel.mesh", "make_mesh"),
+    "init_distributed": ("libmpc_tpu_torch.parallel.mesh", "init_distributed"),
+}
+
+__all__ += list(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

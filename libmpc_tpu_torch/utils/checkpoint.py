@@ -10,8 +10,9 @@ so a long closed loop can resume mid-trajectory.
 The file is the JAX package's: the same array names and the same
 ``__meta__`` JSON, so a file either package writes loads into the other.
 Tensors are copied to the host as numpy arrays on save and onto the
-controller's device, in its dtype, on load.  The fleets' ``save_fleet`` /
-``load_fleet`` wait for the fleets' port.
+controller's device, in its dtype, on load.  ``save_fleet`` /
+``load_fleet`` write and read the whole fleet's arrays, whatever the number
+of ranks that saves or loads them.
 """
 
 from __future__ import annotations
@@ -111,3 +112,40 @@ def load_nlmpc(controller, path: str) -> None:
         controller._current_slack = _tensor(controller, arrays["current_slack"])
     controller._first_iteration = meta.get("first_iteration", False)
     _restore_cmd(controller, arrays)
+
+
+# ---------------------------------------------------------------------------
+# fleets (every rank of the fleet's process group calls these)
+# ---------------------------------------------------------------------------
+
+def save_fleet(fleet, path: str) -> None:
+    """Snapshot a fleet's warm state (LMPCFleet or NLMPCFleet): the ranks'
+    rows are gathered, rank 0 writes the whole fleet's arrays, and every
+    rank returns once the file is complete."""
+    from ..parallel import mesh as mesh_lib
+
+    if hasattr(fleet, "_warm_x"):
+        tree = {"warm_x": fleet._warm_x, "warm_y": fleet._warm_y}
+        kind = "lmpc_fleet"
+    else:
+        tree = {"opt_vector": fleet._opt_vector, "slack": fleet._slack}
+        kind = "nlmpc_fleet"
+    tree = {k: None if v is None else mesh_lib.all_gather_rows(fleet.mesh, v)
+            for k, v in tree.items()}
+    if fleet.mesh.rank == 0:
+        save_pytree(path, tree, {"kind": kind, "dims": list(fleet.controller.dims)})
+    mesh_lib.barrier(fleet.mesh)
+
+
+def load_fleet(fleet, path: str) -> None:
+    """Restore a fleet's warm state from a file of the whole fleet: each rank
+    keeps its own rows."""
+    arrays, meta = load_pytree(path)
+    check_meta(meta, {"dims": list(fleet.controller.dims)})
+    names = (("warm_x", "_warm_x"), ("warm_y", "_warm_y"))
+    if meta["kind"] != "lmpc_fleet":
+        names = (("opt_vector", "_opt_vector"), ("slack", "_slack"))
+    for key, attr in names:
+        if key in arrays:
+            a = arrays[key]
+            setattr(fleet, attr, _tensor(fleet.controller, a[fleet.mesh.rows(a.shape[0])]))

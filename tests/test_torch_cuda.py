@@ -752,3 +752,38 @@ def test_admm_solve_each_graph_replays_match_eager_launches(cuda, monkeypatch):
     assert torch.equal(graphed.status, eager.status)
     assert torch.equal(graphed.iters, eager.iters)
     torch.testing.assert_close(graphed.x, eager.x, rtol=1e-9, atol=1e-9)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """One NCCL rank on the card (a file store under ``tmp_path``, 60 s
+    collective timeout), torn down after the test."""
+    import torch.distributed as dist
+
+    from libmpc_tpu_torch import parallel as par
+
+    par.init_distributed(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl", timeout=60)
+    try:
+        yield par.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind,B,K", [("lmpc", 1024, 3), ("nlmpc", 256, 2)])
+def test_one_nccl_rank_fleet_is_the_controller_bitwise(nccl_mesh, kind, B, K):
+    """The quadrotor LMPCFleet and the Van der Pol NLMPCFleet, float32, as
+    one NCCL rank: the commands of every closed-loop step equal the plain
+    controller's on the same inputs to the bit, the stats count its
+    statuses, and the fleet path launched its kernels."""
+    import libmpc_tpu_torch as lt
+    from libmpc_tpu_torch import parallel as par
+    from libmpc_tpu_torch.ops import trajectory_sweeps as tsw
+
+    mods = (admm_fused, batched_linalg, qp_inner_fused, tsw)
+    r = chip_smoke.fleet_against_plain(torch, lt, par, nccl_mesh, kind, B, K, mods)
+    for f, p in zip(r["fleet_cmd"], r["plain_cmd"]):
+        assert chip_smoke.same_cmds(torch, f, p)
+    for s, p in zip(r["stats"], r["plain_status"]):
+        assert s.n_total == B and s.n_success == int((p == 0).sum())
+    assert r["launches"]["chol_inverse"] > 0
+    assert r["launches"]["admm_fused" if kind == "lmpc" else "qp_inner"] > 0

@@ -194,7 +194,8 @@ def test_status_map_matches_reference_table():
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys, libmpc_tpu_torch, libmpc_tpu_torch.convert; "
+    code = ("import sys, libmpc_tpu_torch, libmpc_tpu_torch.convert, "
+            "libmpc_tpu_torch.parallel, libmpc_tpu_torch.utils.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'libmpc_tpu' or m.startswith('libmpc_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
