@@ -25,7 +25,11 @@ PyTorch twin on the card:
 * the batch-sharded fleets of ``libmpc_tpu_torch.parallel`` over
   ``torch.distributed``: ``LMPCFleet`` on the quadrotor loop (K1, K2) and
   ``NLMPCFleet`` on the Van der Pol loop (K3, K2), as one NCCL rank and as
-  two gloo ranks sharing the card.
+  two gloo ranks sharing the card;
+* the row-sharded QP, ``parallel.solve_sharded`` on the quadrotor QP
+  (n=216, m=535) over a ``(data, model)`` mesh: one NCCL rank, then two and
+  four gloo ranks sharing the card.  It runs no kernel, as the JAX
+  package's row-sharded solve runs no Pallas kernel.
 
 Phases, one line each (any failure raises and the script exits non-zero):
 
@@ -84,11 +88,23 @@ Phases, one line each (any failure raises and the script exits non-zero):
     rows, the gathered result the shards' concatenation, the stats the sums
     of the halves on both ranks; a ``fleet`` line with solves/s and the
     collectives' ms a step
-17. times: kernels, twins and library calls with CUDA events, each kernel's
+17. qp_sharded: the quadrotor QP through ``solve_sharded`` with the
+    closed-loop settings (the dense polish under rows).  (a) one NCCL rank,
+    mesh (1, 1): float32 at B=16384 (success >= 0.999, the x0 = 0 lane within
+    1e-4 of the golden, commands within p99 1e-4 of the unsharded float64
+    solve) beside the unsharded float32 solve (K1's path); float64 at B=1024
+    against the unsharded solve on the plain path with the dense polish
+    (statuses and iterations equal, x within 1e-12).  (b) two gloo ranks on
+    (1, 2) and (c) four on (2, 2) sharing the card (``--qp-rank``), B=1024:
+    float64 statuses and iterations equal to (a)'s, x and y within 1e-9;
+    float32 golden within 1e-4, success >= 0.999; every rank the same global
+    solution to the bit.  Wall ms a solve, the collectives' count and host
+    ms, mean and max iterations and K1 launches (0) of each part
+18. times: kernels, twins and library calls with CUDA events, each kernel's
     bound, steady-state and closed-loop solves/s of the three paths
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-ugv fleet times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
+ugv fleet qp_sharded times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
 ``K1-speed`` line with its time at the main path's batches in both types,
 each tier forced, the bound, the layout, the L2 bytes a launch and their
 rate, registers and spills (``--sweep-k1`` adds a ``K1-sweep`` line: the
@@ -244,6 +260,25 @@ def quadrotor_controller(lt, dtype, device, params):
     c.set_references(y_ref, np.zeros(4), np.zeros(4), lt.HorizonSlice(0, 10))
     c.set_optimizer_parameters(params)
     return c
+
+
+def quadrotor_qp(torch, lt, dtype, device, x0, u0):
+    """The quadrotor controller's QP at states ``x0`` (B, 12) and last
+    commands ``u0`` (B, 4), built by the port's ``lmpc/problem.py`` as
+    tests/test_qp_sharded.py::test_quadrotor_qp_sharded builds the JAX
+    package's: (P, A, q, l, u, eq_mask, cmd) with ``cmd(x)`` the first
+    command of each lane of a solution x (B, n)."""
+    from libmpc_tpu_torch.lmpc import problem as qp
+
+    c = quadrotor_controller(lt, dtype, device, lt.LParameters())
+    dims, prob = c.dims, c._prob
+    P, A, lineq, uineq = qp.build_time_invariant(dims, prob)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    q, l, u = qp.build_time_varying(dims, prob, lineq, uineq, t(x0), t(u0),
+                                    c._y_ref, c._u_ref, c._du_ref, c._u_meas)
+    eq_mask = torch.arange(dims.m, device=device) < dims.n_eq
+    cmd = lambda x: qp.unpack_solution(dims, prob, x, c._u_meas)[1][:, 0]
+    return P, A, q, l, u, eq_mask, cmd
 
 
 def closed_loop_params(lt):
@@ -3261,20 +3296,21 @@ def fleet_rank_main(rank, world, init, out_dir) -> int:
     return 0
 
 
-def spawn_fleet_ranks(world, tmp):
-    """Re-run this script as ``world`` gloo ranks on the card (after this
-    process built the kernel library, so the ranks load it); wait for them
-    within ``FLEET_RANKS_S`` and return each rank's record."""
+def spawn_ranks(kind, world, tmp, limit_s, extra=()):
+    """Re-run this script as ``world`` rank processes of ``kind`` ("fleet",
+    "qp"; gloo unless ``extra`` asks otherwise) after this process built the
+    kernel library, so the ranks load it; wait for them within ``limit_s``
+    and return each rank's record."""
     procs, logs = [], []
     for r in range(world):
         log = open(tmp / f"rank{r}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-rank", str(r),
-             "--fleet-world", str(world), "--fleet-init", f"file://{tmp / 'gloo_store'}",
-             "--fleet-out", str(tmp)],
+            [sys.executable, str(ROOT / "chip_smoke.py"), f"--{kind}-rank", str(r),
+             "--ranks-world", str(world), "--ranks-init", f"file://{tmp / 'store'}",
+             "--ranks-out", str(tmp), *extra],
             cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
-    end = time.monotonic() + FLEET_RANKS_S
+    end = time.monotonic() + limit_s
     try:
         for p in procs:
             p.wait(timeout=max(1.0, end - time.monotonic()))
@@ -3289,7 +3325,7 @@ def spawn_fleet_ranks(world, tmp):
             log.close()
     for r, p in enumerate(procs):
         tail = (tmp / f"rank{r}.log").read_text()[-2000:]
-        require(p.returncode == 0, f"fleet rank {r} exited {p.returncode}:\n{tail}")
+        require(p.returncode == 0, f"{kind} rank {r} exited {p.returncode}:\n{tail}")
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 
@@ -3345,7 +3381,7 @@ def phase_fleet(torch, lt, card, mods):
         torch.distributed.destroy_process_group()
         torch.cuda.empty_cache()
 
-        two = spawn_fleet_ranks(2, tmp)
+        two = spawn_ranks("fleet", 2, tmp, FLEET_RANKS_S)
         for kind, B, K in (("lmpc", B_MAIN, K_FLEET_2R), ("nlmpc", B_FLEET_NL_2R, K_FLEET_NL_2R)):
             require(all(t[f"{kind}_equal"].all() for t in two),
                     f"two gloo ranks: each {kind} shard equals the controller on its rows")
@@ -3372,7 +3408,237 @@ def phase_fleet(torch, lt, card, mods):
     return launches
 
 
-PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "ugv", "fleet", "times")
+# -- the row-sharded QP (libmpc_tpu_torch/parallel/qp_sharded.py) ----------------
+B_QPS_SMALL = 1024  # the float64 comparisons and the gloo ranks
+QPS_GLOO_PARTS = (("b", (1, 2)), ("c", (2, 2)))  # (data, model) of gloo ranks sharing the card
+QPS_RANKS_S = 240  # each spawn of rank processes, start-up included
+
+
+def qps_inputs(B):
+    """The quadrotor QP's states: ``closed_loop_inputs``'s, lane 0 at x0 = 0
+    (the golden lane), last commands 0."""
+    x0, _ = closed_loop_inputs(B, 1)
+    x0[0] = 0.0
+    return x0, np.zeros((B, 4))
+
+
+def qps_success(status):
+    """The share of lanes the LMPC maps to SUCCESS by a solved status."""
+    return float(((status == 1) | (status == 2)).float().mean().item())
+
+
+def qps_run(torch, lt, par, mesh, dtype, B, mods, params=None):
+    """``solve_sharded`` of the quadrotor QP at B lanes on ``mesh``, once
+    untimed (the collectives' and libraries' first use), then once timed:
+    the solution, its first commands, the wall ms of the solve, the
+    collectives' count and host ms in it and the kernel launches."""
+    from libmpc_tpu_torch.parallel import mesh as mesh_lib
+
+    x0, u0 = qps_inputs(B)
+    P, A, q, l, u, eq, cmd = quadrotor_qp(torch, lt, dtype, mesh.device, x0, u0)
+    params = params or closed_loop_params(lt)
+    solve = lambda: par.solve_sharded(P, A, q, l, u, mesh, params, eq_mask=eq)
+    solve()
+    torch.cuda.synchronize()
+    reset_counts(*mods)
+    mesh_lib.all_reduce.calls, mesh_lib.all_reduce.seconds = 0, 0.0
+    t0 = time.perf_counter()
+    sol = solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(sol=sol, cmd=cmd(sol.x), wall_ms=1e3 * wall,
+                collectives=mesh_lib.all_reduce.calls,
+                collective_ms=1e3 * mesh_lib.all_reduce.seconds,
+                launches=read_counts(*mods), qp=(P, A, q, l, u, eq, cmd))
+
+
+QPS_NUMBERS = ("wall_ms", "collectives", "collective_ms", "iters_mean", "iters_max",
+               "k1_launches")
+
+
+def qps_numbers(r):
+    """A ``qps_run`` result's numbers, in the order of ``QPS_NUMBERS``."""
+    it = r["sol"].iters.double()
+    return np.array([r["wall_ms"], r["collectives"], r["collective_ms"], it.mean().item(),
+                     it.max().item(), r["launches"]["admm_fused"]])
+
+
+def qps_fields(tag, numbers):
+    fmt = ("{:.1f}", "{:.0f}", "{:.1f}", "{:.2f}", "{:.0f}", "{:.0f}")
+    return {f"{tag}_{k}": f.format(v) for k, f, v in zip(QPS_NUMBERS, fmt, numbers)}
+
+
+def qps_rank_main(rank, world, init, out_dir, shape, B=B_QPS_SMALL, backend="gloo") -> int:
+    """One rank of the qp_sharded phase on a (data, model) = ``shape`` mesh
+    (gloo ranks share card 0; NCCL ranks take a card each): the float64 and
+    the float32 quadrotor QP at B lanes; writes the global solutions,
+    commands, times and counts to ``rank<r>.npz``."""
+    import torch
+
+    from libmpc_tpu_torch import parallel as par
+    import libmpc_tpu_torch as lt
+    from libmpc_tpu_torch.ops import admm_fused, batched_linalg
+    from libmpc_tpu_torch.ops import qp_inner_fused as qpf
+    from libmpc_tpu_torch.ops import trajectory_sweeps as ts
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    mods = (admm_fused, batched_linalg, qpf, ts)
+    par.init_distributed(init, world, rank, backend=backend, timeout=FLEET_COLLECTIVE_S)
+    mesh = par.make_mesh(*shape)
+    res = {}
+    for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        r = qps_run(torch, lt, par, mesh, dtype, B, mods)
+        for f in ("x", "y", "status", "iters"):
+            res[f"{tag}_{f}"] = getattr(r["sol"], f).cpu().numpy()
+        res[f"{tag}_cmd"] = r["cmd"].cpu().numpy()
+        res[f"{tag}_numbers"] = qps_numbers(r)
+    torch.distributed.destroy_process_group()
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    return 0
+
+
+def phase_qp_sharded(torch, lt, admm, card, mods, nccl_cards=0):
+    """The row-sharded QP on the quadrotor QP (n=216, m=535) with the
+    closed-loop settings (under rows the shared polish becomes the dense
+    one), through ``parallel.solve_sharded``:
+
+    (a) one NCCL rank, mesh (1, 1): float32 at B=16384 (success >= 0.999,
+        the x0 = 0 lane's command within 1e-4 of the golden, the commands
+        within p99 1e-4 of the unsharded float64 ``admm_solve`` at the same
+        states), beside the unsharded float32 ``admm_solve`` (K1's path);
+        float64 at B=1024 against the unsharded solve with
+        ``use_pallas=False``, ``polish_mode="dense"``,
+        ``compact_stragglers=False`` (statuses and iterations equal, x
+        within 1e-12);
+    (b), (c) two gloo ranks on (1, 2) and four on (2, 2) sharing the card at
+        B=1024: float64 statuses and iterations equal to (a)'s float64, x
+        and y within 1e-9; float32 golden within 1e-4 and success >= 0.999;
+        every rank's global solution the same to the bit.
+
+    With ``nccl_cards`` N (``--qp-nccl N``, on a machine with N cards) parts
+    (d) on (1, N) and (e) on (2, N / 2), NCCL ranks a card each, replace (b)
+    and (c), with the same gates.  The host ms of NCCL collectives are
+    their enqueue.
+
+    K1 launches on the sharded path: 0, as the JAX package's XLA loop
+    there.  Returns the sharded path's kernel launches (all 0)."""
+    import dataclasses
+    import tempfile
+
+    from libmpc_tpu_torch import parallel as par
+
+    t_phase = time.perf_counter()
+    fields = {}
+    f32, f64 = torch.float32, torch.float64
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qps_") as tmp:
+        tmp = Path(tmp)
+        par.init_distributed(f"file://{tmp / 'nccl_store'}", 1, 0, backend="nccl",
+                             timeout=FLEET_COLLECTIVE_S)
+        mesh = par.make_mesh(1, 1)
+        require(mesh.backend == "nccl" and mesh.device.type == "cuda",
+                f"one NCCL rank on the card, got {mesh}")
+
+        # (a) float32 at the main path's batch
+        r = qps_run(torch, lt, par, mesh, f32, B_MAIN, mods)
+        launches = r["launches"]
+        P, A, q, l, u, eq, _ = r["qp"]
+        frac = qps_success(r["sol"].status)
+        golden = float((r["cmd"][0].double().cpu() - torch.as_tensor(GOLDEN_CMD)).abs().max())
+        x0, u0 = qps_inputs(B_MAIN)
+        P6, A6, q6, l6, u6, eq6, cmd6 = quadrotor_qp(torch, lt, f64, "cuda", x0, u0)
+        ref = admm.admm_solve(P6, A6, q6, l6, u6, closed_loop_params(lt), eq_mask=eq6)
+        err = (r["cmd"].double() - cmd6(ref.x)).abs().amax(1).cpu().numpy()
+        p99 = float(np.quantile(err, 0.99))
+        del ref, P6, A6, q6, l6, u6
+        plain = lambda: admm.admm_solve(P, A, q, l, u, closed_loop_params(lt), eq_mask=eq)
+        plain()
+        torch.cuda.synchronize()
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        plain_k1 = read_counts(*mods)["admm_fused"]
+        fields.update(B=B_MAIN, **qps_fields("a_f32", qps_numbers(r)),
+                      a_f32_success_frac=f"{frac:.6f}",
+                      a_f32_golden_err=f"{golden:.3e}",
+                      a_f32_cmd_err_vs_f64_p99=f"{p99:.3e}",
+                      a_f32_cmd_err_vs_f64_max=f"{err.max():.3e}",
+                      a_unsharded_f32_wall_ms=f"{plain_ms:.1f}",
+                      a_unsharded_f32_k1_launches=plain_k1)
+        require(frac >= 0.999, f"(a) float32 success share {frac} >= 0.999")
+        require(golden <= 1e-4, f"(a) float32 golden lane within 1e-4: {golden}")
+        require(p99 <= 1e-4, f"(a) float32 commands within p99 1e-4 of float64: {p99}")
+        require(launches["admm_fused"] == 0, "the sharded path launches no K1")
+        del r, P, A, q, l, u, plain
+        torch.cuda.empty_cache()
+
+        # (a) float64 at B=1024 against the unsharded solve on the same path
+        base = dataclasses.replace(closed_loop_params(lt), use_pallas=False,
+                                   polish_mode="dense", compact_stragglers=False)
+        a64 = qps_run(torch, lt, par, mesh, f64, B_QPS_SMALL, mods)
+        P, A, q, l, u, eq, _ = a64["qp"]
+        ref = admm.admm_solve(P, A, q, l, u, base, eq_mask=eq)
+        s64 = a64["sol"]
+        same = (torch.equal(s64.status, ref.status) and torch.equal(s64.iters, ref.iters))
+        dx = float((s64.x - ref.x).abs().max())
+        fields.update(**qps_fields("a_f64", qps_numbers(a64)), a_f64_x_vs_unsharded=f"{dx:.3e}")
+        require(same, "(a) float64 statuses and iterations equal the unsharded solve's")
+        require(dx <= 1e-12, f"(a) float64 x within 1e-12 of the unsharded solve: {dx}")
+        require(a64["launches"]["admm_fused"] == 0, "the sharded path launches no K1")
+        torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # (b), (c) gloo ranks sharing the card, or (d), (e) NCCL ranks a card each
+        parts = [(p_, s_, "gloo") for p_, s_ in QPS_GLOO_PARTS]
+        if nccl_cards:
+            require(torch.cuda.device_count() >= nccl_cards,
+                    f"--qp-nccl {nccl_cards} needs {nccl_cards} cards")
+            parts = [("d", (1, nccl_cards), "nccl"), ("e", (2, nccl_cards // 2), "nccl")]
+        for part, shape, backend in parts:
+            world = shape[0] * shape[1]
+            sub = tmp / f"ranks{part}"
+            sub.mkdir()
+            recs = spawn_ranks("qp", world, sub, QPS_RANKS_S,
+                               ("--qp-mesh", ",".join(map(str, shape)), "--qp-backend", backend))
+            got = recs[0]
+            for r_ in recs:
+                require(all(np.array_equal(r_[k], got[k], equal_nan=True)
+                            for k in got if not k.endswith("_numbers")),
+                        f"({part}) every rank returns the same global solution")
+            dx = float(np.abs(got["f64_x"] - s64.x.cpu().numpy()).max())
+            dy = float(np.abs(got["f64_y"] - s64.y.cpu().numpy()).max())
+            same = (np.array_equal(got["f64_status"], s64.status.cpu().numpy())
+                    and np.array_equal(got["f64_iters"], s64.iters.cpu().numpy()))
+            st32 = torch.as_tensor(got["f32_status"])
+            frac = qps_success(st32)
+            golden = float(np.abs(got["f32_cmd"][0] - GOLDEN_CMD).max())
+            # the slowest rank's numbers (the iterations are global)
+            nums = {tag: np.max([r_[f"{tag}_numbers"] for r_ in recs], axis=0)
+                    for tag in ("f64", "f32")}
+            for tag, n_ in nums.items():
+                fields.update(qps_fields(f"{part}_{tag}", n_))
+            fields.update({f"{part}_mesh": "x".join(map(str, shape)), f"{part}_backend": backend,
+                           f"{part}_f64_x_vs_a": f"{dx:.3e}", f"{part}_f64_y_vs_a": f"{dy:.3e}",
+                           f"{part}_f32_success_frac": f"{frac:.6f}",
+                           f"{part}_f32_golden_err": f"{golden:.3e}"})
+            require(same, f"({part}) float64 statuses and iterations equal (a)'s")
+            require(dx <= 1e-9 and dy <= 1e-9, f"({part}) float64 x, y within 1e-9 of (a)'s: "
+                                               f"{dx}, {dy}")
+            require(golden <= 1e-4, f"({part}) float32 golden lane within 1e-4: {golden}")
+            require(frac >= 0.999, f"({part}) float32 success share {frac} >= 0.999")
+            k1 = QPS_NUMBERS.index("k1_launches")
+            require(nums["f64"][k1] == 0 and nums["f32"][k1] == 0,
+                    f"({part}) the sharded path launches no K1")
+    phase("qp_sharded", card=repr(card), **fields,
+          wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "ugv", "fleet", "qp_sharded",
+          "times")
 
 
 def main(argv=None) -> int:
@@ -3402,13 +3668,25 @@ def main(argv=None) -> int:
                          "tile and ring depth")
     ap.add_argument("--fleet-rank", type=int, default=None,
                     help="run as this gloo rank of the fleet phase (the phase spawns them)")
-    ap.add_argument("--fleet-world", type=int, default=2, help=argparse.SUPPRESS)
-    ap.add_argument("--fleet-init", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--fleet-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--qp-rank", type=int, default=None,
+                    help="run as this gloo rank of the qp_sharded phase (the phase spawns them)")
+    ap.add_argument("--qp-mesh", default="1,2", help=argparse.SUPPRESS)
+    ap.add_argument("--qp-batch", type=int, default=B_QPS_SMALL, help=argparse.SUPPRESS)
+    ap.add_argument("--qp-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--qp-nccl", type=int, default=0, metavar="N",
+                    help="with qp_sharded: NCCL ranks on N cards, meshes (1, N) and (2, N/2), "
+                         "in place of the gloo ranks sharing one card")
+    ap.add_argument("--ranks-world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--ranks-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ranks-out", default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     if opts.fleet_rank is not None:
-        return fleet_rank_main(opts.fleet_rank, opts.fleet_world, opts.fleet_init,
-                               opts.fleet_out)
+        return fleet_rank_main(opts.fleet_rank, opts.ranks_world, opts.ranks_init,
+                               opts.ranks_out)
+    if opts.qp_rank is not None:
+        return qps_rank_main(opts.qp_rank, opts.ranks_world, opts.ranks_init,
+                             opts.ranks_out, tuple(map(int, opts.qp_mesh.split(","))),
+                             opts.qp_batch, opts.qp_backend)
     want = set(opts.phases.split(","))
     if not want <= set(PHASES):
         ap.error(f"unknown phase in {opts.phases!r}")
@@ -3469,6 +3747,8 @@ def main(argv=None) -> int:
         k2_ugv = phase_k2_ugv(torch, batched_linalg, card)
     if "fleet" in want:
         launches_fleet = phase_fleet(torch, lt, card, mods)
+    if "qp_sharded" in want:
+        launches_qps = phase_qp_sharded(torch, lt, admm, card, mods, opts.qp_nccl)
     if opts.profile and "lmpc" in want:
         phase_profile_lmpc(torch, lt, host)
     if opts.profile and "nlmpc" in want:
@@ -3500,7 +3780,7 @@ def main(argv=None) -> int:
         return 0
 
     paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc, "ugv": launches_ugv,
-             "fleet": launches_fleet}
+             "fleet": launches_fleet, "qp_sharded": launches_qps}
 
     def entry(name, source, replaces, err, **extra):
         ms, plain, bound, by, lib = times[name]

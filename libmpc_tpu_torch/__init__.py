@@ -9,9 +9,10 @@ banded factorization and solve sweeps run in hand-written CUDA kernels on an
 NVIDIA H100 (float32 or float64), and in plain PyTorch on the CPU.
 Controllers run on the CUDA card unless built with ``device="cpu"``.
 The JAX package ``libmpc_tpu`` is the reference this port is held against;
-this package imports neither it nor JAX.  Fleets split a batch over the
-ranks of a ``torch.distributed`` process group (``parallel/``).  Not ported
-yet: the row-sharded QP (``solve_sharded``) and the compatibility surface.
+this package imports neither it nor JAX.  Over the ranks of a
+``torch.distributed`` process group laid out as a ``(data, model)`` mesh
+(``parallel/``), fleets split a batch and ``solve_sharded`` splits one QP's
+constraint rows.  Not ported yet: the compatibility surface.
 """
 
 from .dims import LDims, NLDims
@@ -75,13 +76,15 @@ __all__ = [
     "set_default_dtype",
 ]
 
-# the fleets import torch.distributed, so they load on first use
+# the fleets and the sharded QP import torch.distributed, so they load on
+# first use
 _LAZY = {
     "LMPCFleet": ("libmpc_tpu_torch.parallel.fleet", "LMPCFleet"),
     "NLMPCFleet": ("libmpc_tpu_torch.parallel.fleet", "NLMPCFleet"),
     "FleetStats": ("libmpc_tpu_torch.parallel.fleet", "FleetStats"),
     "make_mesh": ("libmpc_tpu_torch.parallel.mesh", "make_mesh"),
     "init_distributed": ("libmpc_tpu_torch.parallel.mesh", "init_distributed"),
+    "solve_sharded": ("libmpc_tpu_torch.parallel.qp_sharded", "solve_sharded"),
 }
 
 __all__ += list(_LAZY)

@@ -32,13 +32,16 @@ their own.
 
 Status codes reuse OSQP's integer values so ``Result.solver_status`` is
 directly comparable with the reference's
-(reference: include/mpc/LMPC/LOptimizer.hpp:386-415).  The JAX package's
-row-sharded and batch-sharded layouts (``axis_rows``/``axis_batch``) are
-not ported yet.
+(reference: include/mpc/LMPC/LOptimizer.hpp:386-415).
+
+:func:`admm_solve` also runs the JAX package's row-sharded and
+batch-sharded layouts (``axis_rows``/``axis_batch``, axes of a
+``parallel.mesh.Mesh``) for ``parallel/qp_sharded.py::solve_sharded``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -104,7 +107,38 @@ def _inf_norm(v, dim=-1):
     return torch.amax(torch.abs(v), dim=dim)
 
 
-def _ruiz_equilibration(P, A, q_ref, iters: int):
+# -- distribution helpers ----------------------------------------------------
+# The solver is written once and runs in three layouts
+# (libmpc_tpu/ops/admm.py:89-115): one process (axis_rows = axis_batch =
+# None); the constraint rows of A/l/u/z/y split over the ranks of a mesh axis
+# (axis_rows: a rank holds its row block, x-space quantities replicate,
+# cross-space products sum over the axis and row-space norms take its
+# maximum); and the batch split over a data axis (axis_batch: only the
+# batch-global statistics, the Ruiz cost reference, the adaptive-rho
+# estimate and the loop exit, reduce over it).  An axis is a
+# ``parallel.mesh.Axis``.
+
+
+def _over(axis, how: str, *ts):
+    """``ts`` (one dtype) summed (``how`` "sum") or maximised ("max") over
+    ``axis`` in one collective: a SUM of stacked tensors is elementwise and a
+    MAX exact, so the values are those of one collective each.  Unchanged
+    without an axis.  Returns a tuple."""
+    if axis is None:
+        return ts
+    flat = getattr(axis, how)(torch.cat([t.reshape(-1) for t in ts]))
+    out, i = [], 0
+    for t in ts:
+        out.append(flat[i:i + t.numel()].view(t.shape))
+        i += t.numel()
+    return tuple(out)
+
+
+def _psum_rows(v, axis_rows):
+    return _over(axis_rows, "sum", v)[0]
+
+
+def _ruiz_equilibration(P, A, q_ref, iters: int, axis_rows=None):
     """Modified Ruiz equilibration of the KKT-stacked matrix (OSQP scaling.c).
 
     Returns diagonal scalings ``d`` (n,), ``e`` (m,) and cost scaling ``c``
@@ -115,7 +149,8 @@ def _ruiz_equilibration(P, A, q_ref, iters: int):
     ``P`` (..., n, n), ``A`` (..., m, n) and ``q_ref`` (..., n) may carry
     leading batch axes: each instance is then equilibrated on its own (the
     fused inner-QP solver's per-instance problems), and ``d``, ``e``, ``c``
-    carry the same axes.
+    carry the same axes.  Under ``axis_rows`` the A column norms take the
+    maximum over the row shards.
     """
     kw = dict(dtype=P.dtype, device=P.device)
     lead = P.shape[:-2]
@@ -132,7 +167,8 @@ def _ruiz_equilibration(P, A, q_ref, iters: int):
 
     for _ in range(iters):
         # column inf-norms of the stacked [[P, A'], [A, 0]]
-        col_norm_x = torch.maximum(_inf_norm(P, dim=-2), _inf_norm(A, dim=-2))
+        col_norm_x = torch.maximum(_inf_norm(P, dim=-2),
+                                   _over(axis_rows, "max", _inf_norm(A, dim=-2))[0])
         col_norm_y = _inf_norm(A, dim=-1)
         dd = 1.0 / torch.sqrt(limit(col_norm_x))
         ee = 1.0 / torch.sqrt(limit(col_norm_y))
@@ -190,7 +226,7 @@ def _scalar(v, like):
 
 
 def prepare_qp(P, A, q_ref, eq_mask, loose_mask,
-               params: LParameters) -> PreparedQP:
+               params: LParameters, axis_rows=None) -> PreparedQP:
     """One-time setup: Ruiz equilibration + initial KKT inverse.
 
     ``q_ref`` is a representative linear term used only for the cost
@@ -200,12 +236,15 @@ def prepare_qp(P, A, q_ref, eq_mask, loose_mask,
     ``P`` (..., n, n), ``A`` (..., m, n), ``q_ref`` (..., n) and the masks
     (..., m) may carry a leading batch axis: each instance is then set up on
     its own (:func:`admm_solve_each`), and every field carries the axis.
+    Under ``axis_rows`` ``A``, ``e`` and the masks are the rank's row block,
+    and the shared-polish pair is not built (the row-sharded solve polishes
+    densely).
     """
     full_precision(P.device)
     lead, n, m = P.shape[:-2], P.shape[-1], A.shape[-2]
     kw = dict(dtype=P.dtype, device=P.device)
     if params.scaling_iters > 0:
-        d, e, c = _ruiz_equilibration(P, A, q_ref, params.scaling_iters)
+        d, e, c = _ruiz_equilibration(P, A, q_ref, params.scaling_iters, axis_rows)
     else:
         d, e, c = torch.ones(lead + (n,), **kw), torch.ones(lead + (m,), **kw), torch.ones(lead, **kw)
     Ps = c[..., None, None] * (P * d[..., None, :] * d[..., :, None])
@@ -213,11 +252,11 @@ def prepare_qp(P, A, q_ref, eq_mask, loose_mask,
     sigma_v, rho_lo, rho_hi = _rho_bounds(P.dtype, params)
     rho_init = torch.clamp(_scalar(params.rho, P), rho_lo, rho_hi)
     M0, Minv0 = _build_kkt_inverse(
-        Ps, As, _rho_vec_of(rho_init, eq_mask, loose_mask), sigma_v
+        Ps, As, _rho_vec_of(rho_init, eq_mask, loose_mask), sigma_v, axis_rows
     )
     # the shared-polish base inverse is only built when these params will
     # run that polish; admm_solve builds it on the fly otherwise
-    if params.polish and params.polish_mode == "shared":
+    if params.polish and params.polish_mode == "shared" and axis_rows is None:
         Mpinv, Mpinv_lo = _polish_prep(P, A, eq_mask)
     else:
         Mpinv = Mpinv_lo = None
@@ -287,7 +326,7 @@ def _polish_prep(P, A, eq_mask):
     return Mpinv, Mpinv_lo
 
 
-def _build_kkt_inverse(P, A, rho_vec, sigma):
+def _build_kkt_inverse(P, A, rho_vec, sigma, axis_rows=None):
     """Explicit inverse (and the matrix itself) of
     M = P + sigma*I + A' diag(rho) A.
 
@@ -299,9 +338,12 @@ def _build_kkt_inverse(P, A, rho_vec, sigma):
     kernel K2 (:func:`ops.batched_linalg.chol_inverse`; its twin on CPU
     tensors), and past its gate, n > 64, the blocked Schur recursion over
     it on either device (``libmpc_tpu/ops/batched_linalg.py:158-175``).
+    With row-sharded A (``axis_rows``) the shards' A' R A sum into the
+    replicated M.
     """
     eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
-    M = P + sigma * eye + (A.mT * rho_vec[..., None, :]) @ A
+    AtRA = _psum_rows((A.mT * rho_vec[..., None, :]) @ A, axis_rows)
+    M = P + sigma * eye + AtRA
     if M.dim() == 2:
         return M, batched_linalg.spd_inverse(M).contiguous()
     if batched_linalg.kernel_supported(M.shape[-1]):
@@ -339,7 +381,7 @@ _LANE_FIELDS = ("x", "z", "y", "x_prev", "y_prev", "iters", "done", "status",
 
 
 def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
-                       params: LParameters):
+                       params: LParameters, axis_rows=None, axis_batch=None):
     """OSQP's periodic check on the unscaled residuals: convergence,
     infeasibility certificates, the relaxed verdict a max-iteration exit
     would report, float32 stall detection and the adaptive-rho estimate.
@@ -349,6 +391,13 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
     (:func:`admm_solve_each`): ``P`` (B, n, n), ``A`` (B, m, n), ``d``
     (B, n), ``e`` (B, m), ``c`` (B,) and rho (B,); each lane's adaptive-rho
     estimate is then the geometric mean over that lane alone.
+
+    Sharded (shared (P, A) only): under ``axis_rows`` ``A``, ``e``, z/y and
+    the bounds are the rank's row block; the cross-space products and the
+    support function sum over the row shards in one collective, and the
+    row norms and the recession-cone test take their maximum in another.
+    Under ``axis_batch`` the adaptive-rho estimate's log-sum and count sum
+    over the batch shards.
 
     Returns the updated state, the adaptive-rho verdict and the rho
     estimate (0-d tensors, or (B,) per lane; still on the device).
@@ -362,15 +411,7 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
     Px = _mm(x, P)
     Aty = _mm(y, A)
     pri = _inf_norm((Ax - z) / e)
-    dua = _inf_norm((Px + qs + Aty) / d) / c
     pri_rel = torch.maximum(_inf_norm(Ax / e), _inf_norm(z / e))
-    dua_rel = torch.maximum(
-        torch.maximum(_inf_norm(Px / d), _inf_norm(Aty / d)),
-        _inf_norm(qs / d),
-    ) / c
-    eps_pri = params.eps_abs + params.eps_rel * pri_rel
-    eps_dua = params.eps_abs + params.eps_rel * dua_rel
-    solved = (pri <= eps_pri) & (dua <= eps_dua)
 
     # -- infeasibility certificates (unscaled deltas) ----------------
     # unscaling: x = D x_bar, y = c^-1 E y_bar
@@ -380,7 +421,7 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
     norm_dx = _inf_norm(dx)
 
     # primal infeasibility: ||A' dy|| small and support function negative
-    Atdy = _inf_norm(_mm(y - state.y_prev, A) / d) / c
+    Atdy_v = _mm(y - state.y_prev, A)
     u_unscaled = us / e
     l_unscaled = ls / e
     dy_plus = torch.clamp(dy, min=0.0)
@@ -392,10 +433,6 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
         + torch.where(dy_minus < 0, torch.clamp(l_unscaled, min=-INF_BOUND) * dy_minus, 0.0),
         dim=-1,
     )
-    # OSQP auxil.c is_primal_infeasible: ||dy|| > eps, support function
-    # strictly negative, and A'dy ~ 0
-    eps_p = params.eps_prim_inf * norm_dy
-    prim_inf = (norm_dy > params.eps_prim_inf) & (sup < -eps_p) & (Atdy < eps_p)
 
     # dual infeasibility: P dx ~ 0, q'dx < 0, A dx in recession cone
     Pdx = _inf_norm(_mm(dx / d, P) / d) / c
@@ -412,14 +449,37 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
         )
         return torch.all((u_inf & l_inf) | inside, dim=-1)
 
-    def is_dual_infeasible(eps_dual_inf):
+    # the test at the certificate's tolerance and at the relaxed one
+    eps_d = params.eps_dual_inf * norm_dx
+    eps_d_i = INACCURATE_TOL_FACTOR * params.eps_dual_inf * norm_dx
+    cone, cone_i = cone_recession(eps_d), cone_recession(eps_d_i)
+    if axis_rows is not None:
+        Aty, Atdy_v, sup = _over(axis_rows, "sum", Aty, Atdy_v, sup)
+        pri, pri_rel, norm_dy, out, out_i = _over(
+            axis_rows, "max", pri, pri_rel, norm_dy, (~cone).to(x.dtype), (~cone_i).to(x.dtype))
+        cone, cone_i = out == 0, out_i == 0
+
+    dua = _inf_norm((Px + qs + Aty) / d) / c
+    dua_rel = torch.maximum(
+        torch.maximum(_inf_norm(Px / d), _inf_norm(Aty / d)),
+        _inf_norm(qs / d),
+    ) / c
+    eps_pri = params.eps_abs + params.eps_rel * pri_rel
+    eps_dua = params.eps_abs + params.eps_rel * dua_rel
+    solved = (pri <= eps_pri) & (dua <= eps_dua)
+
+    Atdy = _inf_norm(Atdy_v / d) / c
+    # OSQP auxil.c is_primal_infeasible: ||dy|| > eps, support function
+    # strictly negative, and A'dy ~ 0
+    eps_p = params.eps_prim_inf * norm_dy
+    prim_inf = (norm_dy > params.eps_prim_inf) & (sup < -eps_p) & (Atdy < eps_p)
+
+    def is_dual_infeasible(eps_dual_inf, eps_d, cone):
         # OSQP auxil.c is_dual_infeasible: ||dx|| > eps, q'dx strictly
         # negative, P dx ~ 0, and A dx in the recession cone
-        eps_d = eps_dual_inf * norm_dx
-        return ((norm_dx > eps_dual_inf) & (Pdx < eps_d) & (qdx < -eps_d)
-                & cone_recession(eps_d))
+        return ((norm_dx > eps_dual_inf) & (Pdx < eps_d) & (qdx < -eps_d) & cone)
 
-    dual_inf = is_dual_infeasible(params.eps_dual_inf)
+    dual_inf = is_dual_infeasible(params.eps_dual_inf, eps_d, cone)
 
     # -- relaxed re-check: the status a max-iteration exit reports -----
     # OSQP's osqp_solve re-runs check_termination(approximate) on the
@@ -435,7 +495,7 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
         & (sup < -eps_p_i)
         & (Atdy < eps_p_i)
     )
-    dual_inf_inacc = is_dual_infeasible(fac * params.eps_dual_inf)
+    dual_inf_inacc = is_dual_infeasible(fac * params.eps_dual_inf, eps_d_i, cone_i)
     inacc = torch.where(
         solved_inacc, OSQP_SOLVED_INACCURATE,
         torch.where(
@@ -491,6 +551,11 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
         n_act = active.long()
         if state.rho.dim() == 0:
             log_sum, n_act = torch.sum(log_sum), torch.sum(n_act)
+            if axis_batch is not None:
+                # across the whole batch, so that every shard makes the rho
+                # decision an unsharded batch would
+                log_sum, n_all = _over(axis_batch, "sum", log_sum, n_act.to(log_sum.dtype))
+                n_act = n_all.long()
         rho_est = state.rho * torch.exp(log_sum / torch.clamp(n_act, min=1))
         rho_est = torch.clamp(torch.nan_to_num(rho_est, nan=rho_lo), rho_lo, rho_hi)
         need_update = (n_act > 0) & (
@@ -516,9 +581,32 @@ def _termination_check(state: _LoopState, P, A, qs, ls, us, d, e, c,
     return state, need_update, rho_est
 
 
+def _agreed_flags(mesh, all_done, need_update, block: int):
+    """A sharded loop's branch after a check, the same on every rank:
+    whether every instance of the whole batch is done (the data shards'
+    AND, as JAX's psum over ``axis_batch``), and whether this rank's row
+    group rebuilds its KKT inverse (each data shard's own, as under JAX's
+    ``lax.cond``).  One MAX over the whole mesh of each data index's flags
+    beside their negations, one host read.  The ranks of a row group hold
+    the same flags by construction; ranks that disagreed would take two
+    branches and hang at the next collective, so a disagreement raises."""
+    D, di = mesh.shape["data"], mesh.data_index
+    v = torch.zeros((4, D), dtype=torch.float64, device=all_done.device)
+    v[:, di] = torch.stack([all_done, ~all_done, need_update, ~need_update]).to(torch.float64)
+    done, not_done, upd, not_upd = mesh.axis(None).max(v).tolist()
+    split = [i for i in range(D) if done[i] + not_done[i] != 1 or upd[i] + not_upd[i] != 1]
+    if split:
+        raise RuntimeError(
+            f"sharded ADMM, block {block}: the ranks of data index {split} disagree "
+            f"on the loop's exit or on the rho update"
+        )
+    return all(done), bool(upd[di])
+
+
 def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
                d, e, c, M0, Minv0, iter_budget: int, params: LParameters,
-               n_iters: int, check_every: int) -> _LoopState:
+               n_iters: int, check_every: int, axis_rows=None,
+               axis_batch=None) -> _LoopState:
     """Scaled-problem ADMM iterations with periodic termination checks.
 
     All of P/A/q/l/u here are the *scaled* quantities; d/e/c unscale
@@ -529,6 +617,12 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
     contract: the loop stops at the first termination check past the
     budget and unconverged instances report ``OSQP_TIME_LIMIT_REACHED``.
     Pass ``NO_BUDGET`` for no limit.
+
+    Sharded (``axis_rows``/``axis_batch`` set): the plain iterations run,
+    their x-update's ``(rho z - y) A`` summed over the row shards, as the
+    JAX package runs its XLA loop there (its Pallas block needs
+    ``axis_rows`` None); there is no straggler compaction, and the
+    branches after each check come from :func:`_agreed_flags`.
     """
     B = qs.shape[0]
     dtype = P.dtype
@@ -536,8 +630,14 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
     f32 = dtype == torch.float32
     sigma_v, rho_lo, rho_hi = _rho_bounds(dtype, params)
     refine = f32 and params.x_refine
-    iterate = (admm_fused.fused_iterations if params.use_pallas
-               else admm_fused.plain_iterations)
+    sharded = axis_rows is not None or axis_batch is not None
+    if sharded:
+        iterate = functools.partial(
+            admm_fused.plain_iterations,
+            reduce=None if axis_rows is None else axis_rows.sum)
+    else:
+        iterate = (admm_fused.fused_iterations if params.use_pallas
+                   else admm_fused.plain_iterations)
 
     def rho_vec_of(rho):
         return _rho_vec_of(rho, rho_mask_eq, rho_mask_loose)
@@ -560,10 +660,10 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
         M=M0, Minv=Minv0,
     )
 
-    def block(state: _LoopState, qs, ls, us):
-        """One iteration block + termination check.  Returns the new state,
-        whether every lane is done and the count of active lanes (one
-        device-to-host read per block)."""
+    def block(state: _LoopState, qs, ls, us, k):
+        """Block ``k``: its iterations + termination check.  Returns the new
+        state, whether every lane is done and the count of active lanes
+        (None when sharded; one device-to-host read per block)."""
         x, z, y = iterate(
             state.x, state.z, state.y, state.done, qs, ls, us,
             A, state.M, state.Minv, rho_vec_of(state.rho),
@@ -575,13 +675,18 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
             iters=state.iters + torch.where(state.done, 0, check_every).to(torch.int32),
         )
         state, need_update, rho_est = _termination_check(
-            state, P, A, qs, ls, us, d, e, c, params
+            state, P, A, qs, ls, us, d, e, c, params, axis_rows, axis_batch
         )
-        all_done, update, n_active = torch.stack([
-            state.done.all().long(), need_update.long(), (~state.done).sum(),
-        ]).tolist()
+        if sharded:
+            all_done, update = _agreed_flags(
+                (axis_rows or axis_batch).mesh, state.done.all(), need_update, k)
+            n_active = None
+        else:
+            all_done, update, n_active = torch.stack([
+                state.done.all().long(), need_update.long(), (~state.done).sum(),
+            ]).tolist()
         if update:
-            M, Minv = _build_kkt_inverse(P, A, rho_vec_of(rho_est), sigma_v)
+            M, Minv = _build_kkt_inverse(P, A, rho_vec_of(rho_est), sigma_v, axis_rows)
             state = state._replace(rho=rho_est, M=M, Minv=Minv)
         return state, bool(all_done), n_active
 
@@ -599,11 +704,11 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
     cap = 8
     while cap * 32 <= B:
         cap *= 2
-    compact = params.compact_stragglers and cap < B and B >= 256
+    compact = params.compact_stragglers and not sharded and cap < B and B >= 256
 
     k, stop, n_active = 0, False, B
     while go_on(k, stop) and (not compact or n_active > cap):
-        state, stop, n_active = block(state, qs, ls, us)
+        state, stop, n_active = block(state, qs, ls, us, k)
         k += 1
 
     if compact and go_on(k, stop):
@@ -612,7 +717,7 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
         sub = state._replace(**{f: getattr(state, f)[idx] for f in _LANE_FIELDS})
         qs_c, ls_c, us_c = qs[idx], ls[idx], us[idx]
         while go_on(k, stop):
-            sub, stop, _ = block(sub, qs_c, ls_c, us_c)
+            sub, stop, _ = block(sub, qs_c, ls_c, us_c, k)
             k += 1
         state = sub._replace(**{
             f: getattr(state, f).index_copy(0, idx, getattr(sub, f))
@@ -695,19 +800,19 @@ def _polish_active_set(l, u, sol_y, eq_mask, dtype, delta):
     return active, b, w
 
 
-def _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x_pol, y_pol, active):
+def _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x_pol, y_pol, active,
+                   axis_rows=None):
     """Per-instance acceptance: keep the polished solution only if it
-    reduces both residual norms (OSQP polish.c:polish())."""
+    reduces both residual norms (OSQP polish.c:polish()).  Under
+    ``axis_rows`` the residuals' row products sum, and their row norms take
+    the maximum, over the row shards."""
     y_pol = torch.where(active, y_pol, 0.0)
     z_pol = torch.clamp(_mm(x_pol, A.mT), min=l, max=u)
-
-    def residuals(x, z, y):
-        pri = _inf_norm(_mm(x, A.mT) - z)
-        dua = _inf_norm(_mm(x, P) + q + _mm(y, A))
-        return pri, dua
-
-    pri0, dua0 = residuals(sol_x, sol_z, sol_y)
-    pri1, dua1 = residuals(x_pol, z_pol, y_pol)
+    Aty0, Aty1 = _over(axis_rows, "sum", _mm(sol_y, A), _mm(y_pol, A))
+    pri0, pri1 = _over(axis_rows, "max", _inf_norm(_mm(sol_x, A.mT) - sol_z),
+                       _inf_norm(_mm(x_pol, A.mT) - z_pol))
+    dua0 = _inf_norm(_mm(sol_x, P) + q + Aty0)
+    dua1 = _inf_norm(_mm(x_pol, P) + q + Aty1)
     better = (pri1 <= pri0) & (dua1 <= dua0)
     bsel = better[:, None]
     return (
@@ -826,7 +931,8 @@ def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
     return _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x_pol, y_pol, active)
 
 
-def _polish(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters, eq_mask):
+def _polish(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters, eq_mask,
+            axis_rows=None):
     """Active-set polish (OSQP polish.c, penalty/Schur-complement form) with
     per-instance dense factorizations (``libmpc_tpu/ops/admm.py:1067``).
 
@@ -835,7 +941,12 @@ def _polish(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters, eq_mask):
         (P + delta I + A_act' (1/delta) A_act) x = -q + A_act' b / delta
 
     with a fixed (n, n) shape (active sets enter as per-instance 0/1 row
-    weights), then refines against the unregularized KKT system.
+    weights), then refines against the unregularized KKT system.  An
+    instance whose matrix the Cholesky factorization refuses gets NaN, as
+    under JAX's ``cho_factor``, and the acceptance test keeps its ADMM
+    iterate.  Under ``axis_rows`` (the row-sharded solve) the row products
+    sum over the row shards: the matrices once, then one collective a
+    refinement pass.
     """
     dtype = P.dtype
     n = P.shape[-1]
@@ -846,28 +957,35 @@ def _polish(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters, eq_mask):
 
     active, b, w = _polish_active_set(l, u, sol_y, eq_mask, dtype, delta)
     eye = torch.eye(n, dtype=dtype, device=P.device)
-    M = P + delta * eye + A.mT @ (w[:, :, None] * A)  # (B, n, n)
-    L = torch.linalg.cholesky(M)
+    AtWA = _psum_rows(A.mT @ (w[:, :, None] * A), axis_rows)
+    M = P + delta * eye + AtWA  # (B, n, n)
+    L, info = torch.linalg.cholesky_ex(M)
+    L = torch.where((info != 0)[:, None, None], float("nan"), L)
 
     def cho_solve(r):
         return torch.cholesky_solve(r[:, :, None], L)[..., 0]
 
-    x = cho_solve(-q + _mm(w * b, A))
+    x = cho_solve(-q + _psum_rows(_mm(w * b, A), axis_rows))
     nu = w * (_mm(x, A.mT) - b)
     for _ in range(refine_iters):
-        r1 = -q - _mm(x, P) - _mm(torch.where(active, nu, 0.0), A)
         r2 = torch.where(active, b - _mm(x, A.mT), 0.0)
-        dx = cho_solve(r1 + _mm(w * r2, A))
+        Anu, Awr = _over(axis_rows, "sum", _mm(torch.where(active, nu, 0.0), A),
+                         _mm(w * r2, A))
+        r1 = -q - _mm(x, P) - Anu
+        dx = cho_solve(r1 + Awr)
         dnu = w * (_mm(dx, A.mT) - r2)
         x, nu = x + dx, nu + dnu
-    return _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x, nu, active)
+    return _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x, nu, active, axis_rows)
 
 
 def _finish(state: _LoopState, prep: PreparedQP, P, A, q, l, u,
-            params: LParameters) -> QPSolution:
+            params: LParameters, axis_rows=None) -> QPSolution:
     """The loop's end, for either solver: unscale the state, take the
     polish where the lane solved, and the objective.  ``P``/``A`` are the
-    unscaled matrices, shared or one a lane as in ``prep``."""
+    unscaled matrices, shared or one a lane as in ``prep``.  Under
+    ``axis_rows`` the polish is the dense one whatever ``polish_mode`` says
+    (the shared polish gathers rows across the shards;
+    ``libmpc_tpu/ops/admm.py:1330-1345``)."""
     d, e, c = prep.d, prep.e, prep.c
     x = state.x * d
     y = state.y * e / c[..., None]
@@ -875,7 +993,7 @@ def _finish(state: _LoopState, prep: PreparedQP, P, A, q, l, u,
     pri_res, dua_res = state.pri_res, state.dua_res
 
     if params.polish:
-        if params.polish_mode == "shared":
+        if params.polish_mode == "shared" and axis_rows is None:
             # a prepared cache built under no-polish params has no pair
             pair = ((prep.Mpinv, prep.Mpinv_lo) if prep.Mpinv is not None
                     else _polish_prep(P, A, prep.eq_mask))
@@ -884,7 +1002,7 @@ def _finish(state: _LoopState, prep: PreparedQP, P, A, q, l, u,
             )
         else:
             x_p, y_p, z_p, pri_p, dua_p = _polish(
-                P, A, q, l, u, x, y, z, params, prep.eq_mask
+                P, A, q, l, u, x, y, z, params, prep.eq_mask, axis_rows
             )
         ok = (state.status == OSQP_SOLVED) | (state.status == OSQP_SOLVED_INACCURATE)
         sel = ok[:, None]
@@ -914,8 +1032,25 @@ def admm_solve(
     iter_budget: Optional[int] = None,
     prepared: Optional[PreparedQP] = None,
     have_warm=None,
+    axis_rows=None,
+    axis_batch=None,
 ) -> QPSolution:
     """Solve a batch of QPs sharing (P, A) structure.
+
+    ``axis_rows``/``axis_batch`` are axes of a ``parallel.mesh.Mesh``
+    (``mesh.axis("model")``, ``mesh.axis("data")``), given on every rank
+    of the mesh.  With ``axis_rows`` the constraint rows of A/l/u (and
+    z/y) are this rank's block of a row-sharded problem: cross-space
+    products sum over the axis and row norms take its maximum, through Ruiz
+    scaling, the KKT inverse, every iteration's x-update, the checks with
+    both certificates, the KKT seed and the dense polish that replaces the
+    shared one.  With ``axis_batch`` the batch is this rank's shard, and
+    the batch-global statistics (the Ruiz cost reference, the adaptive-rho
+    estimate, the loop exit) reduce over it.  The equality and loose masks
+    and ``cold_rho``'s test for a warm lane stay the shard's own, as in the
+    JAX package.  Either axis runs the plain iterations (no K1) without
+    straggler compaction.  ``parallel/qp_sharded.py::solve_sharded`` is the
+    entry point that lays the data out.
 
     Args:
       P: (n, n) quadratic cost (full symmetric, not upper-tri).
@@ -962,7 +1097,9 @@ def admm_solve(
             eq_mask = torch.all((l == u) & torch.isfinite(l), dim=0)
         loose_mask = torch.all((l <= -INF_BOUND) & (u >= INF_BOUND), dim=0)
         q_ref = torch.amax(torch.abs(q), dim=0)
-        prepared = prepare_qp(P, A, q_ref, eq_mask, loose_mask, params)
+        if axis_batch is not None:
+            q_ref = axis_batch.max(q_ref)
+        prepared = prepare_qp(P, A, q_ref, eq_mask, loose_mask, params, axis_rows)
 
     Ps, As = prepared.Ps, prepared.As
     d, e, c = prepared.d, prepared.e, prepared.c
@@ -983,7 +1120,7 @@ def admm_solve(
         if not any_warm:
             rho0 = torch.clamp(_scalar(params.cold_rho, P), rho_lo, rho_hi)
             M0_run, Minv0_run = _build_kkt_inverse(
-                Ps, As, _rho_vec_of(rho0, eq_mask, loose_mask), sigma_v
+                Ps, As, _rho_vec_of(rho0, eq_mask, loose_mask), sigma_v, axis_rows
             )
 
     y_seed = torch.zeros((B, m), dtype=dtype, device=dev)
@@ -991,10 +1128,13 @@ def admm_solve(
         # seed the cold start at the minimizer of the rho-weighted
         # equality-anchored quadratic model: one ADMM x-update at
         # z = clip(0, l, u), y = 0, against the KKT inverse the cold solve
-        # will run with
+        # will run with.  Under axis_rows the row product sums over the
+        # shards, as every cross-space product does, so x-space quantities
+        # replicate from the start (the JAX package leaves this one a
+        # shard's partial sum: ROADMAP.md, known reference behaviours)
         rho_vec0 = _rho_vec_of(torch.clamp(rho0, rho_lo, rho_hi), eq_mask, loose_mask)
         z_t = torch.clamp(torch.zeros_like(ls), min=ls, max=us)
-        x_seed = ((rho_vec0 * z_t) @ As - qs) @ Minv0_run
+        x_seed = (_psum_rows((rho_vec0 * z_t) @ As, axis_rows) - qs) @ Minv0_run
         if params.cold_start == "kkt_duals":
             # the dual step ADMM itself would take from (x_seed, y=0)
             Ax = x_seed @ As.T
@@ -1023,9 +1163,10 @@ def admm_solve(
         M0_run, Minv0_run, NO_BUDGET if iter_budget is None else iter_budget,
         params, params.maximum_iteration,
         min(params.check_termination, params.maximum_iteration),
+        axis_rows, axis_batch,
     )
 
-    sol = _finish(state, prepared, P, A, q, l, u, params)
+    sol = _finish(state, prepared, P, A, q, l, u, params, axis_rows)
     if unbatched:
         sol = QPSolution(*(t[0] for t in sol))
     return sol

@@ -61,19 +61,22 @@ def mm(X, M):
 
 def plain_iterations(x, z, y, done, q, l, u, A, M, Minv, rho_vec, *,
                      sigma: float, alpha: float, k_iters: int,
-                     refine: bool = True):
+                     refine: bool = True, reduce=None):
     """``k_iters`` ADMM iterations in plain PyTorch (the kernel's twin).
 
     Shapes: x/q (B, n); z/y/l/u (B, m); done (B,) bool, or None where every
     lane runs; A (m, n), M/Minv (n, n) and rho_vec (m,) shared by the batch,
     or A (B, m, n), M/Minv (B, n, n) and rho_vec (B, m), one a lane (the
-    per-instance solve, ``admm.admm_solve_each``).  Returns the updated
-    (x, z, y).
+    per-instance solve, ``admm.admm_solve_each``).  ``reduce``, when
+    given, is applied to each x-update's ``(rho z - y) A`` (the row-sharded
+    solve sums it over the row shards: A, z, y, l, u and rho_vec are then
+    the rank's row block).  Returns the updated (x, z, y).
     """
     At = A.mT
     for _ in range(k_iters):
         # x-update: (P + sigma I + A' R A) xt = sigma x - q + A'(R z - y)
-        rhs = sigma * x - q + mm(rho_vec * z - y, A)
+        Ar = mm(rho_vec * z - y, A)
+        rhs = sigma * x - q + (Ar if reduce is None else reduce(Ar))
         xt = mm(rhs, Minv)  # Minv symmetric
         if refine:
             # one refinement pass against M recovers the digits the

@@ -1,26 +1,27 @@
-"""Process-group utilities for batch-sharded fleets.
+"""Process-group utilities for sharded fleets and the row-sharded QP.
 
-Port of ``libmpc_tpu/parallel/mesh.py``.  The scaling axis is the *batch of
-problem instances*: a fleet of MPC problems is split over the ranks of a
-``torch.distributed`` process group, one rank a process and a device, each
-rank solving its contiguous slice of the batch, with ``all_reduce``
-(SUM, MAX) collectives for the fleet-level statistics and an
-``all_gather`` of the result rows.  This module holds the rank layout
-shared by the fleet solvers and the collectives they use.
+Port of ``libmpc_tpu/parallel/mesh.py``.  The ranks of a
+``torch.distributed`` process group, one process a device, are laid out as
+a ``(data, model)`` mesh, the layout of JAX's ``grid.reshape(data, model)``:
+rank ``r`` sits at data index ``r // model`` and model index ``r % model``.
+Collectives (``all_reduce`` SUM/MAX, ``all_gather`` of rows) run over one
+axis of the mesh, within the process group of the ranks that share the
+other index, or over the whole mesh.
 
 Axes, as in the JAX package:
 
-* ``data`` — scenario/batch parallelism: rank r holds rows
-  ``[r*B/R, (r+1)*B/R)`` of a batch of B over R ranks, the layout of
-  ``PartitionSpec("data")``.
-* ``model`` — within-problem parallelism (the row-sharded QP).  Not ported:
-  :func:`make_mesh` refuses ``model > 1``.
+* ``data`` — scenario/batch parallelism: the ranks at data index d hold rows
+  ``[d*B/D, (d+1)*B/D)`` of a batch of B over D data indices, the layout of
+  ``PartitionSpec("data")``.  The fleets reduce their statistics and gather
+  their rows over this axis only.
+* ``model`` — within-problem parallelism: the constraint rows of one QP
+  split over the ranks of a model group (``parallel/qp_sharded.py``).
 
 Launch one process a rank (``torchrun``, or ``torch.multiprocessing`` with
 an explicit ``init_method``), call :func:`init_distributed` once in each,
 then build the mesh.  The collectives run on the card with NCCL and on the
 host with gloo (gloo reduces CUDA tensors but does not gather them, so a
-gloo mesh gathers host copies even when its ranks solve on a card).
+gloo mesh moves host copies even when its ranks solve on a card).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Dict, Optional
+import time
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -71,53 +73,104 @@ def init_distributed(init_method: Optional[str] = None,
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the fleet: ``shape`` (``{"data": R, "model":
-    1}``), ``rank``, the ``device`` its solves run on and the process
-    group's ``backend`` (None without a process group: one rank, no
-    collective)."""
+    """This rank's place in the mesh: ``shape`` (``{"data": D, "model":
+    M}``), ``rank``, the ``device`` its solves run on, the process group's
+    ``backend`` (None without a process group: one rank, no collective) and
+    ``groups``, the process group of each axis that has one (an axis absent
+    from it spans the whole world, or has one rank)."""
 
     shape: Dict[str, int]
     rank: int
     device: torch.device
     backend: Optional[str]
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
+        """The data axis's size: the number of distinct batch shards."""
         return self.shape[DATA_AXIS]
 
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.shape[MODEL_AXIS]
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.shape[MODEL_AXIS]
+
     def rows(self, batch: int) -> slice:
-        """This rank's rows of a batch of ``batch`` instances; a batch that
-        does not divide over the ranks raises ``ValueError`` (on every rank,
-        before any collective)."""
+        """This rank's rows of a batch of ``batch`` instances, by its data
+        index; a batch that does not divide over the data axis raises
+        ``ValueError`` (on every rank, before any collective)."""
         if batch % self.size:
             raise ValueError(f"batch {batch} must divide over data axis {self.size}")
         per = batch // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
+        return slice(self.data_index * per, (self.data_index + 1) * per)
+
+    def axis(self, name: Optional[str]) -> "Axis":
+        """The :class:`Axis` ``name`` of this mesh, as the solver takes it
+        (``ops/admm.py``'s ``axis_rows``/``axis_batch``); None: the whole
+        mesh."""
+        if name is not None and name not in self.shape:
+            raise ValueError(f"mesh axes are {tuple(self.shape)}, not {name!r}")
+        return Axis(self, name)
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of a :class:`Mesh` (``name`` None: the whole mesh): the
+    collectives of this rank over the ranks that share its other index.
+    An axis of one rank reduces nothing and launches nothing.  Results come
+    back on the input's device."""
+
+    mesh: Mesh
+    name: Optional[str]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(self.mesh, t, dist.ReduceOp.SUM, self.name).to(t.device)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(self.mesh, t, dist.ReduceOp.MAX, self.name).to(t.device)
+
+
+def _axis_ranks(data: int, model: int):
+    """The rank lists of each axis's groups, in the order every rank creates
+    them: the model groups (one a data index), then the data groups (one a
+    model index)."""
+    return {
+        MODEL_AXIS: [[d * model + j for j in range(model)] for d in range(data)],
+        DATA_AXIS: [[d * model + j for d in range(data)] for j in range(model)],
+    }
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
     """This rank's :class:`Mesh` over the initialised process group (or a
     one-rank mesh without one).
 
-    ``data`` defaults to the world size and must equal it.  ``device``
-    defaults to ``cuda:(local rank mod card count)`` (``LOCAL_RANK``, else
-    the rank), made the current CUDA device; pass ``device="cpu"`` to solve
-    on the host.  Without a card and without ``device`` it raises, as the
-    controllers do.
+    ``data`` defaults to ``world // model``, and ``data * model`` must equal
+    the world size: every rank belongs to the mesh (the JAX package takes
+    the first ``data * model`` devices; with one process a device, a rank
+    left out would have no part in the collectives).  A shape that does not
+    fit raises ``ValueError`` on every rank before any collective.  Every
+    rank creates the axes' process groups in the same order
+    (``dist.new_group`` is collective), also those it is not in; an axis
+    that spans the world uses the world's group, and one of one rank none.
+
+    ``device`` defaults to ``cuda:(local rank mod card count)``
+    (``LOCAL_RANK``, else the rank), made the current CUDA device; pass
+    ``device="cpu"`` to solve on the host.  Without a card and without
+    ``device`` it raises, as the controllers do.
     """
-    if model != 1:
-        raise NotImplementedError(
-            "model > 1 is the row-sharded QP (parallel/qp_sharded.py), not "
-            "ported yet (ROADMAP.md queue 1 item 2)"
-        )
     on = dist.is_initialized()
     world = dist.get_world_size() if on else 1
     rank = dist.get_rank() if on else 0
     backend = dist.get_backend() if on else None
+    if model < 1:
+        raise ValueError(f"mesh model={model} must be at least 1")
     if data is None:
-        data = world
-    if data != world:
-        raise ValueError(f"mesh data={data} needs {data} ranks, have {world}")
+        data = world // model
+    if data < 1 or data * model != world:
+        raise ValueError(f"mesh {data}x{model} needs {data * model} ranks, have {world}")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -133,7 +186,15 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
         torch.cuda.set_device(device)
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("an NCCL process group needs a CUDA device for its ranks")
-    return Mesh({DATA_AXIS: data, MODEL_AXIS: 1}, rank, device, backend)
+    groups = {}
+    shape = {DATA_AXIS: data, MODEL_AXIS: model}
+    for name, lists in _axis_ranks(data, model).items():
+        if 1 < shape[name] < world:
+            for ranks in lists:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[name] = g
+    return Mesh(shape, rank, device, backend, groups)
 
 
 def shard_batch(mesh: Mesh, tree):
@@ -146,35 +207,62 @@ def pad_to_multiple(n: int, k: int) -> int:
     return ((n + k - 1) // k) * k
 
 
-# -- collectives (none without a process group) --------------------------------
+# -- collectives (none without a process group, or over an axis of one rank) --
 def _on_wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``t`` where the backend moves it: the rank's card for NCCL, the host
     for gloo."""
     return t.to(mesh.device if mesh.backend == "nccl" else "cpu")
 
 
-def all_reduce(mesh: Mesh, t: torch.Tensor, op) -> torch.Tensor:
-    """``t`` reduced over the ranks with ``op`` (a ``dist.ReduceOp``), on
-    the wire's device."""
-    if mesh.backend is None:
+def _group(mesh: Mesh, axis: Optional[str]):
+    """(process group, ranks) of ``axis`` (None: the whole mesh); the group
+    None is the world's."""
+    if axis is None:
+        return None, mesh.shape[DATA_AXIS] * mesh.shape[MODEL_AXIS]
+    return mesh.groups.get(axis), mesh.shape[axis]
+
+
+def _timed(fn, *args, **kw):
+    """Run one collective, counted in ``all_reduce.calls`` and its host
+    seconds in ``all_reduce.seconds`` (both kinds together)."""
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    all_reduce.calls += 1
+    all_reduce.seconds += time.perf_counter() - t0
+
+
+def all_reduce(mesh: Mesh, t: torch.Tensor, op, axis: Optional[str] = DATA_AXIS) -> torch.Tensor:
+    """``t`` reduced with ``op`` (a ``dist.ReduceOp``) over the ranks of
+    ``axis`` that share this rank's other index (None: over the whole
+    mesh), on the wire's device."""
+    group, n = _group(mesh, axis)
+    if mesh.backend is None or n == 1:
         return t
     t = _on_wire(mesh, t).contiguous()
-    dist.all_reduce(t, op=op)
+    _timed(dist.all_reduce, t, op=op, group=group)
     return t
 
 
-def all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (the same shape on each) concatenated along the
-    leading axis in rank order, on ``t``'s device."""
-    if mesh.backend is None:
+# collectives of either kind since the counts were last set to 0, and the
+# host seconds spent in their calls (the device copies beside them excluded)
+all_reduce.calls = 0
+all_reduce.seconds = 0.0
+
+
+def all_gather_rows(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+    """The ``t`` of every rank of ``axis`` that shares this rank's other
+    index (the same shape on each), concatenated along the leading axis in
+    the order of their index on ``axis``, on ``t``'s device."""
+    group, n = _group(mesh, axis)
+    if mesh.backend is None or n == 1:
         return t
     part = _on_wire(mesh, t).contiguous()
     if mesh.backend == "nccl":
-        out = part.new_empty((mesh.size * part.shape[0],) + tuple(part.shape[1:]))
-        dist.all_gather_into_tensor(out, part)
+        out = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
+        _timed(dist.all_gather_into_tensor, out, part, group=group)
     else:
-        parts = [torch.empty_like(part) for _ in range(mesh.size)]
-        dist.all_gather(parts, part)
+        parts = [torch.empty_like(part) for _ in range(n)]
+        _timed(dist.all_gather, parts, part, group=group)
         out = torch.cat(parts)
     return out.to(t.device)
 

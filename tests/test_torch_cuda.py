@@ -787,3 +787,26 @@ def test_one_nccl_rank_fleet_is_the_controller_bitwise(nccl_mesh, kind, B, K):
         assert s.n_total == B and s.n_success == int((p == 0).sum())
     assert r["launches"]["chol_inverse"] > 0
     assert r["launches"]["admm_fused" if kind == "lmpc" else "qp_inner"] > 0
+
+
+def test_two_gloo_ranks_row_sharded_qp_match_one_rank(cuda, tmp_path):
+    """The quadrotor QP (float64, B = 64, the closed-loop settings) through
+    ``solve_sharded`` on a (1, 2) mesh of two gloo ranks sharing the card,
+    against one rank alone: statuses and iterations equal, x within 1e-9,
+    and both ranks return the same global solution; no K1 launch."""
+    import libmpc_tpu_torch as lt
+    from libmpc_tpu_torch import parallel as par
+
+    mods = (admm_fused, batched_linalg, qp_inner_fused, tsw)
+    recs = chip_smoke.spawn_ranks("qp", 2, tmp_path, 240,
+                                  ("--qp-mesh", "1,2", "--qp-batch", "64"))
+    one = chip_smoke.qps_run(torch, lt, par, par.make_mesh(1, 1), torch.float64, 64,
+                             mods)["sol"]
+    for rec in recs:
+        assert np.array_equal(rec["f64_x"], recs[0]["f64_x"])
+        assert np.array_equal(rec["f64_y"], recs[0]["f64_y"])
+        k1 = chip_smoke.QPS_NUMBERS.index("k1_launches")
+        assert rec["f64_numbers"][k1] == 0 and rec["f32_numbers"][k1] == 0
+    assert np.array_equal(recs[0]["f64_status"], one.status.cpu().numpy())
+    assert np.array_equal(recs[0]["f64_iters"], one.iters.cpu().numpy())
+    assert np.abs(recs[0]["f64_x"] - one.x.cpu().numpy()).max() <= 1e-9

@@ -104,13 +104,14 @@ def _vdp(lt, **kw):
 
 def _s_mesh(lt, par, mesh, out, args):
     out["mesh_shape"] = np.array([mesh.shape["data"], mesh.shape["model"], mesh.rank])
-    for key, kw, exc in (("mesh_model2_refused", dict(model=2), NotImplementedError),
-                         ("mesh_data3_refused", dict(data=3), ValueError)):
-        try:
-            par.make_mesh(device="cpu", **kw)
-            out[key] = np.array(False)
-        except exc:
-            out[key] = np.array(True)
+    m2 = par.make_mesh(model=2, device="cpu")
+    out["mesh_model2"] = np.array([m2.shape["data"], m2.shape["model"], m2.data_index,
+                                   m2.model_index, m2.rows(8).start])
+    try:
+        par.make_mesh(data=3, device="cpu")
+        out["mesh_data3_refused"] = np.array(False)
+    except ValueError:
+        out["mesh_data3_refused"] = np.array(True)
     got = par.shard_batch(mesh, {"x": np.arange(16), "t": torch.arange(8)})
     out["shard_x"], out["shard_t"] = got["x"], got["t"].numpy()
 
@@ -427,9 +428,12 @@ def every_rank(ranks, key):
 
 # -- the mesh -------------------------------------------------------------------
 def test_mesh_shape_and_refusals(ranks):
+    """model=2 over four ranks builds the (2, 2) mesh (rank r at data index
+    r // 2, model index r % 2); data=3 is not the world and raises."""
     for r in range(WORLD):
         assert list(ranks[r]["mesh_shape"]) == [WORLD, 1, r]
-        assert ranks[r]["mesh_model2_refused"] and ranks[r]["mesh_data3_refused"]
+        assert list(ranks[r]["mesh_model2"]) == [2, 2, r // 2, r % 2, 4 * (r // 2)]
+        assert ranks[r]["mesh_data3_refused"]
 
 
 def test_shard_batch_takes_the_ranks_contiguous_rows(ranks):
@@ -454,8 +458,10 @@ def test_one_process_mesh_without_a_process_group(monkeypatch):
     assert not dist.is_initialized()
     m = tmesh.make_mesh(device="cpu")
     assert m.shape == {"data": 1, "model": 1} and m.backend is None and m.rank == 0
-    with pytest.raises(NotImplementedError, match="row-sharded"):
+    # one rank: model=2 makes a 0 x 2 mesh, which is not the world
+    with pytest.raises(ValueError, match="needs"):
         tmesh.make_mesh(model=2, device="cpu")
+    assert tmesh.make_mesh(1, 1, device="cpu").shape == {"data": 1, "model": 1}
     with pytest.raises(ValueError):
         tmesh.make_mesh(data=2, device="cpu")
     with pytest.raises(ValueError):
