@@ -29,7 +29,10 @@ PyTorch twin on the card:
 * the row-sharded QP, ``parallel.solve_sharded`` on the quadrotor QP
   (n=216, m=535) over a ``(data, model)`` mesh: one NCCL rank, then two and
   four gloo ranks sharing the card.  It runs no kernel, as the JAX
-  package's row-sharded solve runs no Pallas kernel.
+  package's row-sharded solve runs no Pallas kernel;
+* the user surface: the pympcxx layer ``libmpc_tpu_torch.compat``, the six
+  examples of ``examples/torch`` as shipped and the port's float64 ADMM
+  against the native C++ QP oracle (``libmpc_tpu_torch.native_qp``).
 
 Phases, one line each (any failure raises and the script exits non-zero):
 
@@ -100,12 +103,25 @@ Phases, one line each (any failure raises and the script exits non-zero):
     float32 golden within 1e-4, success >= 0.999; every rank the same global
     solution to the bit.  Wall ms a solve, the collectives' count and host
     ms, mean and max iterations and K1 launches (0) of each part
-18. times: kernels, twins and library calls with CUDA events, each kernel's
+18. surface: the quadrotor golden through ``compat`` in float32 and float64
+    (within 1e-4, SUCCESS, the optimal state sequence (11, 12)); the
+    reference's example_nl loop through ``compat`` to convergence (one
+    solution counted a step, commands <= 0.5 + 1e-5); each ``main()`` of
+    ``examples/torch`` (quadrotor: the B=1024 batch feasible; Van der Pol:
+    converged; oscillators: commands <= 0.5 + 1e-5, x'x within 1 % of the
+    float64 run's, ``OSC_EX_ENERGY_F64``; UGV: goal
+    within 0.05, each obstacle cleared by r - 0.05; fleet: every lane
+    SUCCESS; serving: instance 3 ERROR holding its command, the resumed fleet
+    SUCCESS); float64 ``admm_solve`` on the quadrotor QP within 1e-5 of the
+    oracle, whose command is within 1e-4 of the golden.  Wall seconds, steps,
+    statuses and kernel launches of each part (a ``surface`` JSON line); the
+    path must launch all five kernels
+19. times: kernels, twins and library calls with CUDA events, each kernel's
     bound, steady-state and closed-loop solves/s of the three paths
 
 ``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-ugv fleet qp_sharded times; ``--phases k1`` is K1's one-minute check: its twin comparisons and a
-``K1-speed`` line with its time at the main path's batches in both types,
+ugv fleet qp_sharded surface times; ``--phases k1`` is K1's one-minute
+check: its twin comparisons and a ``K1-speed`` line with its time at the main path's batches in both types,
 each tier forced, the bound, the layout, the L2 bytes a launch and their
 rate, registers and spills (``--sweep-k1`` adds a ``K1-sweep`` line: the
 probe's L2 read rate, tiers at more batches, tiles and ring depths);
@@ -3637,8 +3653,283 @@ def phase_qp_sharded(torch, lt, admm, card, mods, nccl_cards=0):
     return launches
 
 
+# -- the user surface: the pympcxx layer, the six examples, the QP oracle ------
+EXAMPLES = ROOT / "examples" / "torch"
+SURFACE_EXAMPLES = ("quadrotor_ex", "vanderpol_ex", "networked_oscillators_ex", "ugv_ex",
+                    "fleet_ex", "serving_ex")
+# x'x after the oscillator example's 10 steps in float64, the same to the
+# last digit in both packages on the CPU (the example from the state
+# [1, 0, ..., 0], x'x = 1: the capped controller lets it rise).  Float32 runs
+# land within 0.4 % of it (the JAX package's 1.26948, the port's 1.26996)
+OSC_EX_ENERGY_F64 = 1.2657496740804706
+# the oracle test's settings (tests/test_native_oracle.py::TIGHT)
+ORACLE_PARAMS = dict(maximum_iteration=4000, eps_abs=1e-9, eps_rel=1e-9)
+
+
+def load_example(name):
+    """``examples/torch/<name>.py`` as the module ``torch_example_<name>``.
+
+    While it loads, an example's ``from quadrotor_ex import ...`` resolves to
+    the torch quadrotor example beside it, whatever module of that name is
+    already imported (the JAX package's examples have the same names)."""
+    import importlib.util
+
+    key = f"torch_example_{name}"
+    if key in sys.modules:
+        return sys.modules[key]
+    siblings = {} if name == "quadrotor_ex" else {"quadrotor_ex": load_example("quadrotor_ex")}
+    spec = importlib.util.spec_from_file_location(key, EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    saved = {k: sys.modules.get(k) for k in siblings}
+    sys.modules.update(siblings)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k)
+            else:
+                sys.modules[k] = v
+    sys.modules[key] = mod
+    return mod
+
+
+def to_numpy(a) -> np.ndarray:
+    """A tensor or a JAX array as a numpy array."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def compat_quadrotor(mpc, **kw):
+    """tests/test_compat.py:64-101, the quadrotor golden, through a pympcxx
+    surface ``mpc`` (the port's ``compat`` with ``kw`` its dtype and device,
+    or the JAX package's): (result, optimal sequence)."""
+    Tnx, Tnu, Tndu, Tny, Tph, Tch = 12, 4, 4, 12, 10, 10
+    lmpc = mpc.LMPC(Tnx, Tnu, Tndu, Tny, Tph, Tch, **kw)
+    Ad, Bd = quadrotor_model()
+    require(lmpc.setStateSpaceModel(Ad, Bd, np.eye(12)), "setStateSpaceModel")
+    OutputW = np.array([0, 0, 10, 10, 10, 10, 0, 0, 0, 5, 5, 5], float)
+    require(lmpc.setObjectiveWeights(OutputW, np.full(4, 0.1), np.zeros(4),
+                                     mpc.HorizonSlice(0, Tph)), "setObjectiveWeights")
+    inf = float("inf")
+    xmin = np.array([-np.pi / 6, -np.pi / 6, -inf, -inf, -inf, -1,
+                     -inf, -inf, -inf, -inf, -inf, -inf])
+    xmax = np.array([np.pi / 6, np.pi / 6] + [inf] * 10)
+    u0 = 10.5916
+    require(lmpc.setStateBounds(xmin, xmax, mpc.HorizonSlice(0, Tph)), "setStateBounds")
+    require(lmpc.setInputBounds(np.full(4, 9.6 - u0), np.full(4, 13.0 - u0),
+                                mpc.HorizonSlice(0, Tch)), "setInputBounds")
+    yRef = np.zeros(12)
+    yRef[2] = 1.0
+    require(lmpc.setReferences(yRef, np.zeros(4), np.zeros(4), mpc.HorizonSlice(0, Tph)),
+            "setReferences")
+    params = mpc.LParameters()
+    params.maximum_iteration = 250
+    lmpc.setOptimizerParameters(params)
+    res = lmpc.optimize(np.zeros(12), np.zeros(4))
+    return res, lmpc.getOptimalSequence()
+
+
+def compat_example_nl(mpc, xp, steps=200, **kw):
+    """tests/test_compat.py:13-60, the reference's python/examples/example_nl.py,
+    through a pympcxx surface ``mpc`` with callbacks written in ``xp``
+    (``torch`` for the port, ``jax.numpy`` for the JAX package), for at most
+    ``steps`` closed-loop steps or until it converges: (steps run, whether it
+    converged, the commands, the execution stats)."""
+    nx, nu, ny = 2, 1, 2
+    ph, ch = 10, 5
+    ineq_c, eq = ph + 1, 0
+    ts = 0.1
+
+    nlmpc = mpc.NLMPC(nx, nu, ny, ph, ch, ineq_c, eq, **kw)
+    nlmpc.setLoggerLevel(mpc.LoggerLevel.NONE)
+    nlmpc.setDiscretizationSamplingTime(ts)
+
+    def state_space(x, u, i):
+        return xp.stack([(1.0 - x[1] * x[1]) * x[0] - x[1] + u[0], x[0]])
+
+    def cost(x, y, u, slack):
+        return xp.sum(xp.square(x)) + xp.sum(xp.square(u))
+
+    def ineq_con(x, y, u, slack):
+        return u[:, 0] - 0.5
+
+    nlmpc.setStateSpaceFunction(state_space, 1e-10)
+    nlmpc.setObjectiveFunction(cost)
+    nlmpc.setIneqConFunction(ineq_con, 1e-10)
+    params = mpc.NLParameters()
+    params.maximum_iteration = 200
+    nlmpc.setOptimizerParameters(params)
+
+    m_x = np.array([0.0, 1.0])
+    m_u = np.array([0.0])
+    cmds, converged = [], False
+    for step in range(steps):
+        res = nlmpc.optimize(m_x, m_u)
+        m_u = to_numpy(res.cmd).astype(float)
+        cmds.append(m_u)
+        dx = np.array([(1.0 - m_x[1] ** 2) * m_x[0] - m_x[1] + m_u[0], m_x[0]])
+        m_x = m_x + dx * ts
+        if abs(m_x[0]) <= 1e-2 and abs(m_x[1]) <= 1e-1:
+            converged = True
+            break
+    return step + 1, converged, np.array(cmds), nlmpc.getExecutionStats()
+
+
+def oracle_quadrotor(torch, lt, device):
+    """tests/test_native_oracle.py::test_quadrotor_qp_agreement on ``device``:
+    the quadrotor QP at x0 = 0 solved by the port's float64 ``admm_solve``
+    and by the native oracle: (max |x - oracle x|, the oracle's status, its
+    iterations, the oracle's first command's distance from the golden, the
+    solver's iterations)."""
+    from libmpc_tpu_torch import native_qp
+    from libmpc_tpu_torch.ops import admm
+
+    f64 = torch.float64
+    P, A, q, l, u, eq_mask, cmd = quadrotor_qp(torch, lt, f64, device, np.zeros((1, 12)),
+                                               np.zeros((1, 4)))
+    sol = admm.admm_solve(P, A, q[0], l[0], u[0], lt.LParameters(**ORACLE_PARAMS),
+                          eq_mask=eq_mask)
+    ref = native_qp.solve(P, A, q[0], l[0], u[0])
+    dx = float(np.abs(to_numpy(sol.x) - ref.x).max())
+    ref_cmd = to_numpy(cmd(torch.as_tensor(ref.x, dtype=f64, device=device)[None]))[0]
+    golden = float(np.abs(ref_cmd - GOLDEN_CMD).max())
+    return dx, ref.status, ref.iters, golden, int(sol.iters)
+
+
+def surface_parts(torch, lt, mods, device):
+    """Run every part of the surface on ``device``, each with its gates;
+    returns {part: record}, each record with its wall seconds, the lines the
+    part printed (kept out of this script's output) and, on the card, its
+    kernel launches."""
+    import contextlib
+    import io
+
+    import libmpc_tpu_torch.compat as mpc
+    from libmpc_tpu_torch.utils.logger import Logger
+
+    parts = {}
+    log = Logger.instance()
+
+    def run(part, fn):
+        out = io.StringIO()
+        level = log.level  # the examples set the process-wide logger's level
+        log.set_stream(out)
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                got = fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            log.set_stream(sys.stdout)
+            log.set_level(level)
+        parts[part] = {"wall_s": round(time.perf_counter() - t0, 3),
+                       "printed_lines": len(out.getvalue().splitlines()),
+                       "launches": read_counts(*mods)}
+        return got
+
+    # (a) the quadrotor golden through the pympcxx layer
+    for dtype in (torch.float32, torch.float64):
+        tag = f"compat_quadrotor_{str(dtype)[6:]}"
+        res, seq = run(tag, lambda: compat_quadrotor(mpc, dtype=dtype, device=device))
+        err = float(np.abs(to_numpy(res.cmd) - GOLDEN_CMD).max())
+        parts[tag].update(golden_err=err, status=res.status_enum.name)
+        require(err <= 1e-4, f"{tag}: golden within 1e-4 ({err})")
+        require(res.status_enum == mpc.SUCCESS, f"{tag}: status SUCCESS")
+        require(tuple(seq.state.shape) == (11, 12), f"{tag}: optimal state sequence (11, 12)")
+    # (b) the reference's example_nl loop through the pympcxx layer
+    steps, converged, cmds, stats = run("compat_example_nl",
+                                        lambda: compat_example_nl(mpc, torch, device=device))
+    parts["compat_example_nl"].update(steps=steps, converged=converged,
+                                      cmd_max=float(cmds.max()),
+                                      number_of_solutions=stats.number_of_solutions)
+    require(converged, "compat example_nl converged within 200 steps")
+    require(stats.number_of_solutions == steps, "compat example_nl counts one solution a step")
+    require(cmds.max() <= 0.5 + 1e-5, f"compat example_nl commands <= 0.5 + 1e-5 ({cmds.max()})")
+
+    # (c) the six examples, each main() as shipped
+    ex = {name: load_example(name) for name in SURFACE_EXAMPLES}
+    res, res_b = run("quadrotor_ex", lambda: ex["quadrotor_ex"].main(device=device))
+    status = to_numpy(res_b.status)
+    parts["quadrotor_ex"].update(status=res.status_enum.name, batch=len(status),
+                                 batch_success=int((status == 0).sum()))
+    require(bool(res_b.is_feasible.all()), "quadrotor_ex: every lane of the batch feasible")
+
+    steps, x, cmds = run("vanderpol_ex", lambda: ex["vanderpol_ex"].main(device=device))
+    done = abs(x[0]) <= 1e-2 and abs(x[1]) <= 1e-1
+    parts["vanderpol_ex"].update(steps=steps, converged=bool(done), cmd_max=float(cmds.max()))
+    require(done, f"vanderpol_ex converged ({x})")
+
+    steps, x0, x, cmds = run("networked_oscillators_ex",
+                             lambda: ex["networked_oscillators_ex"].main(device=device))
+    e0, e1 = float(np.sum(x0**2)), float(np.sum(x**2))
+    e_rel = abs(e1 / OSC_EX_ENERGY_F64 - 1.0)
+    parts["networked_oscillators_ex"].update(steps=steps, cmd_max=float(cmds.max()),
+                                             energy_start=e0, energy_end=e1,
+                                             energy_vs_f64=e_rel)
+    require(cmds.max() <= 0.5 + 1e-5, f"oscillators: commands <= 0.5 + 1e-5 ({cmds.max()})")
+    require(e_rel <= 1e-2, f"oscillators: energy {e1} within 1% of the float64 run's")
+
+    traj, obstacles, radii, goal = run("ugv_ex", lambda: ex["ugv_ex"].main(device=device))
+    miss = float(np.linalg.norm(traj[-1] - goal))
+    dmin = [float(np.linalg.norm(traj - o, axis=1).min()) for o in obstacles]
+    parts["ugv_ex"].update(steps=len(traj) - 1, goal_dist=miss, obstacle_dmin=dmin)
+    require(miss < 0.05, f"ugv_ex: goal within 0.05 ({miss})")
+    for d, r in zip(dmin, radii):
+        require(d > r - 0.05, f"ugv_ex: obstacle cleared by r - 0.05 ({d})")
+
+    result, stats, roll = run("fleet_ex", lambda: ex["fleet_ex"].main(device=device))
+    parts["fleet_ex"].update(batch=stats.n_total, success=stats.n_success,
+                             rollout_success=int((roll.statuses == 0).sum()),
+                             rollout_lane_steps=int(roll.statuses.numel()))
+    require(bool((result.status == 0).all()), "fleet_ex: every lane SUCCESS")
+
+    result, held, r2 = run("serving_ex", lambda: ex["serving_ex"].main(device=device))
+    st3 = int(result.status[3])
+    parts["serving_ex"].update(instance3=lt.ResultStatus(st3).name,
+                               resumed_success=int((r2.status == 0).sum()),
+                               batch=int(r2.status.numel()))
+    require(st3 == lt.ResultStatus.ERROR, "serving_ex: instance 3 ERROR")
+    require(np.array_equal(to_numpy(result.cmd)[3], held),
+            "serving_ex: instance 3 holds its command")
+    require(bool((r2.status == 0).all()), "serving_ex: the resumed fleet solves every lane")
+
+    # (d) the port's float64 ADMM against the independent C++ oracle
+    dx, status, iters, golden, admm_iters = run("oracle",
+                                                lambda: oracle_quadrotor(torch, lt, device))
+    parts["oracle"].update(x_vs_oracle=dx, oracle_status=status, oracle_iters=iters,
+                           oracle_golden_err=golden, admm_iters=admm_iters)
+    require(status == 1, "the oracle solved the quadrotor QP")
+    require(dx <= 1e-5, f"float64 admm_solve within 1e-5 of the oracle ({dx})")
+    require(golden <= 1e-4, f"the oracle's command within 1e-4 of the golden ({golden})")
+    return parts
+
+
+def phase_surface(torch, lt, card, mods):
+    """The user surface on the card: (a) the quadrotor golden through
+    ``libmpc_tpu_torch.compat`` in float32 and float64 (within 1e-4, status
+    SUCCESS, the optimal state sequence (11, 12)); (b) the reference's
+    example_nl loop through it, run to convergence (one solution a step,
+    commands <= 0.5 + 1e-5); (c) the six ``examples/torch`` mains as shipped
+    with each example's own checks; (d) the port's float64 ``admm_solve``
+    on the quadrotor QP against the native C++ oracle (x within 1e-5, the
+    oracle's command within 1e-4 of the golden).  One ``surface`` line, and
+    the parts as JSON; returns the kernel launches of all parts."""
+    t_phase = time.perf_counter()
+    parts = surface_parts(torch, lt, mods, "cuda")
+    launches = {k: sum(p["launches"][k] for p in parts.values()) for k in _wrappers(*mods)}
+    print(json.dumps({"surface": parts}), flush=True)
+    phase("surface", card=repr(card), parts=len(parts),
+          **{f"launches_{k}": v for k, v in launches.items()},
+          wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    for k, v in launches.items():
+        require(v > 0, f"the surface path launched {k}")
+    return launches
+
+
 PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "ugv", "fleet", "qp_sharded",
-          "times")
+          "surface", "times")
 
 
 def main(argv=None) -> int:
@@ -3749,6 +4040,8 @@ def main(argv=None) -> int:
         launches_fleet = phase_fleet(torch, lt, card, mods)
     if "qp_sharded" in want:
         launches_qps = phase_qp_sharded(torch, lt, admm, card, mods, opts.qp_nccl)
+    if "surface" in want:
+        launches_surface = phase_surface(torch, lt, card, mods)
     if opts.profile and "lmpc" in want:
         phase_profile_lmpc(torch, lt, host)
     if opts.profile and "nlmpc" in want:
@@ -3780,7 +4073,7 @@ def main(argv=None) -> int:
         return 0
 
     paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc, "ugv": launches_ugv,
-             "fleet": launches_fleet, "qp_sharded": launches_qps}
+             "fleet": launches_fleet, "qp_sharded": launches_qps, "surface": launches_surface}
 
     def entry(name, source, replaces, err, **extra):
         ms, plain, bound, by, lib = times[name]

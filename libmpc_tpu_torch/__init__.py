@@ -12,7 +12,10 @@ The JAX package ``libmpc_tpu`` is the reference this port is held against;
 this package imports neither it nor JAX.  Over the ranks of a
 ``torch.distributed`` process group laid out as a ``(data, model)`` mesh
 (``parallel/``), fleets split a batch and ``solve_sharded`` splits one QP's
-constraint rows.  Not ported yet: the compatibility surface.
+constraint rows.  ``compat`` is the drop-in surface of the reference's
+pympcxx binding, ``native_qp`` binds the independent C++ QP oracle the
+solver is tested against, and ``utils/flops.py`` holds the analytic FLOP
+and byte models; ``examples/torch/`` has the six examples.
 """
 
 from .dims import LDims, NLDims

@@ -15,7 +15,10 @@
 //   z   = clip(zu, l, u)
 //   y   = clipped ? y + rho (zr - z) : 0
 //
-// Lanes whose `done` flag is set keep x/z/y bitwise untouched.
+// Lanes whose `done` flag is set keep x/z/y bitwise untouched.  A NaN bound
+// gives a NaN z, as the twin's torch.clamp and the JAX package's jnp.clip do
+// (a lane whose state is NaN must end NaN, which the controller reports as
+// an error and answers by holding its last command).
 //
 // What bounds it on this card.  The TPU kernel keeps A, M and Minv in VMEM;
 // at the quadrotor size (n=216, m=535) they take 836 KB in float32, more
@@ -129,6 +132,13 @@ __host__ __device__ constexpr int staged_ld(int k, int elem) {
 __host__ __device__ constexpr long long staged_words(int bt, int n, int m, int stages) {
   return (long long)bt * (3 * staged_ld(n, 4) + 2 * staged_ld(m, 4) + staged_ld(kSlabRows, 4)) +
          (long long)stages * kSlabRows * n + 8;
+}
+
+// clip(v, lo, hi), NaN where a bound is NaN (lo != lo tests for NaN)
+template <typename T>
+__device__ __forceinline__ T clip_bounds(T v, T lo, T hi) {
+  v = (v < lo || lo != lo) ? lo : v;
+  return (v > hi || hi != hi) ? hi : v;
 }
 
 __host__ __device__ constexpr bool staged_shape(int n, int m, int elem) {
@@ -484,8 +494,7 @@ admm_staged_kernel(const float* __restrict__ x, const float* __restrict__ z,
             // y / rho with the division of a zero skipped (the quotient is
             // that zero; a zero numerator takes the division's slow path)
             const T zu = zr + (yo == T(0) ? yo : yo / rr[e]);
-            zn = zu < lo[e] ? lo[e] : zu;
-            zn = zn > hi[e] ? hi[e] : zn;
+            zn = clip_bounds(zu, lo[e], hi[e]);
             const bool clipped = (zu < lo[e]) || (zu > hi[e]);
             yn = clipped ? yo + rr[e] * (zr - zn) : T(0);
             Z[lane * ldm + i] = zn;
@@ -679,8 +688,7 @@ admm_stream_kernel(const T* __restrict__ x, const T* __restrict__ z,
         const T zu = zr + yo / r;
         const T lo = __ldg(l + g);
         const T hi = __ldg(u + g);
-        T zn = zu < lo ? lo : zu;
-        zn = zn > hi ? hi : zn;
+        const T zn = clip_bounds(zu, lo, hi);
         const bool clipped = (zu < lo) || (zu > hi);
         zs[i * BT + b] = zn;
         ys[i * BT + b] = clipped ? yo + r * (zr - zn) : T(0);

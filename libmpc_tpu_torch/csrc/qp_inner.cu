@@ -138,10 +138,12 @@ __device__ __forceinline__ T warp_nanmax(T v) {
 template <typename T>
 __device__ __forceinline__ T abs_t(T v) { return v < T(0) ? -v : v; }
 
+// clamp(v, lo, hi), NaN where a bound is NaN, as the twin's torch.clamp
+// (lo != lo tests for NaN)
 template <typename T>
 __device__ __forceinline__ T clamp_t(T v, T lo, T hi) {
-  v = v < lo ? lo : v;
-  return v > hi ? hi : v;
+  v = (v < lo || lo != lo) ? lo : v;
+  return (v > hi || hi != hi) ? hi : v;
 }
 
 template <typename T>

@@ -810,3 +810,99 @@ def test_two_gloo_ranks_row_sharded_qp_match_one_rank(cuda, tmp_path):
     assert np.array_equal(recs[0]["f64_status"], one.status.cpu().numpy())
     assert np.array_equal(recs[0]["f64_iters"], one.iters.cpu().numpy())
     assert np.abs(recs[0]["f64_x"] - one.x.cpu().numpy()).max() <= 1e-9
+
+
+def test_compat_quadrotor_golden_float32(cuda):
+    """tests/test_compat.py's quadrotor script through
+    ``libmpc_tpu_torch.compat`` on the card in float32: the golden within
+    1e-4, status SUCCESS, results on the card; K1 launched."""
+    import libmpc_tpu_torch.compat as mpc
+
+    launches = admm_fused.fused_iterations.launches
+    res, seq = chip_smoke.compat_quadrotor(mpc, dtype=torch.float32)
+    assert res.cmd.device.type == "cuda" and seq.state.device.type == "cuda"
+    assert np.abs(res.cmd.cpu().numpy() - chip_smoke.GOLDEN_CMD).max() <= 1e-4
+    assert res.status_enum == mpc.SUCCESS
+    assert tuple(seq.state.shape) == (11, 12)
+    assert admm_fused.fused_iterations.launches > launches
+
+
+def test_float64_admm_solve_on_the_card_matches_native_oracle(cuda):
+    """The card's float64 ``admm_solve`` on the quadrotor QP against the
+    native C++ oracle (tests/test_native_oracle.py's settings): x within
+    1e-5, the oracle's command within 1e-4 of the golden."""
+    import libmpc_tpu_torch as lt
+    from libmpc_tpu_torch import native_qp
+
+    if not native_qp.available():
+        pytest.skip("native toolchain unavailable (g++)")
+    dx, status, _, golden, _ = chip_smoke.oracle_quadrotor(torch, lt, "cuda")
+    assert status == 1
+    assert dx <= 1e-5
+    assert golden <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tier", [(torch.float32, 1), (torch.float32, 0),
+                                        (torch.float64, 0)])
+def test_fused_iterations_nan_bound_gives_nan_as_the_twin(cuda, dtype, tier):
+    """A lane with a NaN bound (a NaN state puts NaN in the initial-state
+    rows' l = u) ends NaN where the twin's torch.clamp puts NaN, in each
+    tier; the other lanes agree with the twin as usual."""
+    B, n, m = 37, 24, 40
+    q, l, u, A, M, Minv, rho = _k1_data(B, n, m, dtype, cuda)
+    l[5, :3] = u[5, :3] = float("nan")
+    lay = (admm_fused.staged_layout(B, n, m) if tier == 1
+           else admm_fused.stream_layout(B, n, m, dtype))
+    zeros = lambda w: torch.zeros((B, w), dtype=dtype, device=cuda)
+    done = torch.zeros(B, dtype=torch.bool, device=cuda)
+    kw = dict(sigma=1e-5, alpha=1.6, refine=dtype == torch.float32, k_iters=10)
+    args = (zeros(n), zeros(m), zeros(m), done, q, l, u, A, M, Minv, rho)
+    got = admm_fused.launch(lay, *args, **kw)
+    want = admm_fused.plain_iterations(*args, **kw)
+    torch.cuda.synchronize()
+    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    ok[5] = False
+    assert torch.isnan(want[0][5]).all() and torch.isnan(want[1][5]).any()
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert (g[ok] - w[ok]).abs().max().item() <= _K1_TOL[dtype] * w[ok].abs().max().item()
+
+
+def test_qp_inner_nan_bound_gives_nan_as_the_twin(cuda):
+    """K3's projection: a lane with a NaN bound ends with NaN where the
+    twin's does, float64; the other lanes' done flags and iterations are
+    the twin's."""
+    B = 16
+    data = _k3_data(B, torch.float64, cuda)
+    data[3][2, :2] = data[4][2, :2] = float("nan")
+    x0 = torch.zeros((B, 26), dtype=torch.float64, device=cuda)
+    y0 = torch.zeros((B, 57), dtype=torch.float64, device=cuda)
+    kw = dict(_K3_KW, eps_abs=1e-9, eps_rel=1e-9, max_iter=2000)
+    got = qp_inner_fused.solve_batched(*data, x0, y0, **kw)
+    want = qp_inner_fused.plain_solve_batched(*data, x0, y0, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert torch.isnan(want[0][2]).any()
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+
+
+def test_lmpc_nan_state_lane_holds_its_command(cuda):
+    """The quadrotor LMPC in float32 on the card (K1's path): a lane whose
+    state turns NaN reports ERROR and holds its last command; the others
+    solve (serving_ex's failure containment)."""
+    import libmpc_tpu_torch as lt
+
+    c = chip_smoke.quadrotor_controller(lt, torch.float32, "cuda", lt.LParameters(
+        maximum_iteration=100, enable_warm_start=True, rho=0.01))
+    x = 0.03 * np.random.default_rng(0).normal(size=(8, 12))
+    r = c.optimize(x, np.zeros((8, 4)))
+    held = r.cmd[3].clone()
+    x[3] = np.nan
+    launches = admm_fused.fused_iterations.launches
+    r = c.optimize(x, r.cmd)
+    assert admm_fused.fused_iterations.launches > launches
+    status = r.status.cpu().numpy()
+    assert status[3] == int(lt.ResultStatus.ERROR)
+    assert torch.equal(r.cmd[3], held)
+    assert (np.delete(status, 3) == 0).all()

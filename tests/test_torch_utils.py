@@ -1,5 +1,5 @@
 """Port utilities against the JAX package's: discretization, RK4, logger,
-profiler and the time-limit budgeter."""
+profiler, the time-limit budgeter and the FLOP/byte models."""
 
 import io
 
@@ -9,9 +9,11 @@ import pytest
 import torch
 
 import libmpc_tpu.utils.discretization as jdisc
+import libmpc_tpu.utils.flops as jfl
 import libmpc_tpu.utils.integrators as jint
 from libmpc_tpu_torch.types import Result, ResultStatus
 from libmpc_tpu_torch.utils import deadline, discretization, integrators
+from libmpc_tpu_torch.utils import flops as fl
 from libmpc_tpu_torch.utils.logger import Logger, LogLevel
 from libmpc_tpu_torch.utils.profiler import Profiler
 
@@ -92,3 +94,62 @@ def test_budgeter_skips_first_record_and_tracks_minimum():
     b.record(0.05, 100)
     assert b.seconds_per_iteration == pytest.approx(2e-4)
     assert b.budget(0.01) == 50
+
+
+# (n, m): the quadrotor QP, Van der Pol's inner QP, the UGV's, a tiny one;
+# (ph, ch, nx, nu, mi): the oscillators, Van der Pol, the UGV
+QP_SHAPES = [(216, 535), (26, 57), (61, 123), (3, 5)]
+TRAJ_SHAPES = [(20, 10, 12, 6, 126), (10, 5, 2, 1, 11), (10, 10, 4, 2, 22)]
+
+
+@pytest.mark.parametrize("n,m", QP_SHAPES)
+def test_admm_models_equal_jax(n, m):
+    for refine in (True, False):
+        assert fl.admm_iter_flops(n, m, refine) == jfl.admm_iter_flops(n, m, refine)
+        assert fl.admm_xla_iter_bytes(n, m, refine) == jfl.admm_xla_iter_bytes(n, m, refine)
+        for iters, every in ((20.0, 10), (3.0, 25), (250.0, 0)):
+            assert (fl.admm_solve_flops(n, m, iters, every, refine)
+                    == jfl.admm_solve_flops(n, m, iters, every, refine))
+            for pallas in (True, False):
+                assert (fl.admm_solve_bytes(n, m, iters, every, pallas, refine)
+                        == jfl.admm_solve_bytes(n, m, iters, every, pallas, refine))
+    for itemsize in (4, 8):
+        assert (fl.admm_pallas_block_bytes(n, m, itemsize)
+                == jfl.admm_pallas_block_bytes(n, m, itemsize))
+        assert fl.admm_check_bytes(n, m, itemsize) == jfl.admm_check_bytes(n, m, itemsize)
+    assert fl.admm_check_flops(n, m) == jfl.admm_check_flops(n, m)
+    assert fl.fused_sqp_iter_flops(n, 20, 11) == jfl.fused_sqp_iter_flops(n, 20, 11)
+    assert (fl.fused_sqp_iter_flops(n, 20, 11, admm_iters=300.0)
+            == jfl.fused_sqp_iter_flops(n, 20, 11, admm_iters=300.0))
+
+
+@pytest.mark.parametrize("ph,ch,nx,nu,mi", TRAJ_SHAPES)
+def test_sqp_models_equal_jax(ph, ch, nx, nu, mi):
+    assert (fl.traj_ipm_iter_flops(ph, ch, nx, nu, mi)
+            == jfl.traj_ipm_iter_flops(ph, ch, nx, nu, mi))
+    for ipm in (20.0, 45.0):
+        assert (fl.sqp_iter_flops(ph, ch, nx, nu, mi, ipm)
+                == jfl.sqp_iter_flops(ph, ch, nx, nu, mi, ipm))
+
+
+def test_flop_models_positive_and_monotone():
+    """tests/test_utils.py::TestRooflineModels' first structural check."""
+    a = fl.admm_solve_flops(216, 535, 20.0, 10)
+    b = fl.admm_solve_flops(216, 535, 40.0, 10)
+    assert 0 < a < b
+    s1 = fl.sqp_iter_flops(20, 10, 12, 6, 126)
+    s2 = fl.sqp_iter_flops(20, 10, 12, 6, 126, ipm_iters=40.0)
+    assert 0 < s1 < s2
+
+
+def test_bytes_models():
+    """tests/test_utils.py::TestRooflineModels' second: the fused block
+    amortizes the iterations' traffic over the check window."""
+    n, m = 216, 535
+    blk = fl.admm_pallas_block_bytes(n, m)
+    xla = fl.admm_xla_iter_bytes(n, m)
+    assert blk / 10.0 < 0.25 * xla
+    bp = fl.admm_solve_bytes(n, m, 20.0, 10, use_pallas=True)
+    bx = fl.admm_solve_bytes(n, m, 20.0, 10, use_pallas=False)
+    assert 0 < bp < bx
+    assert fl.admm_check_bytes(n, m) > 0
