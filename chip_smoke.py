@@ -1144,15 +1144,15 @@ def k3_refactorizations(torch, qpf, args, kw):
     TPU kernel, also refactors after the last check block, which the CUDA
     kernel does not; those are left out.  Counted by watching the twin's
     calls of ``torch.linalg.cholesky_ex`` and the count of its host reads
-    (``_host.flag.reads``: two a check block until the last); the twin
-    itself is not changed."""
+    (``_host.reads``: two a check block until the last); the twin itself
+    is not changed."""
     real = torch.linalg.cholesky_ex
-    flag = qpf._host.flag
+    host = qpf._host
     n_blocks = max(1, (kw["max_iter"] + kw["check_every"] - 1) // kw["check_every"])
-    prev, moves, start = [None], [0], flag.reads
+    prev, moves, start = [None], [0], host.reads
 
     def watch(M, *a, **k):
-        if prev[0] is not None and (flag.reads - start) // 2 < n_blocks:
+        if prev[0] is not None and (host.reads - start) // 2 < n_blocks:
             moves[0] += int((M != prev[0]).flatten(1).any(1).sum().item())
         prev[0] = M.clone()
         return real(M, *a, **k)
@@ -1257,14 +1257,14 @@ def phase_main_nlmpc(torch, lt, qpf, host, mods):
 
     reset_counts(*mods)
     qpf.solve_batched.trace = []
-    host.flag.reads = 0
+    host.reads = 0
     t0 = time.perf_counter()
     r = lt.nlmpc_rollout(c, vdp_plant(torch, noise), x0,
                          torch.zeros((B_NL, 1), dtype=f32, device=dev), K_NL)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(*mods)
-    reads = host.flag.reads
+    reads = host.reads
     trace, qpf.solve_batched.trace = qpf.solve_batched.trace, None
     k3_iters = torch.cat([it for it, _ in trace]).cpu().numpy()
     k3_done = torch.cat([d for _, d in trace]).float().mean().item()
@@ -1474,7 +1474,7 @@ def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
         return x, u
 
     def window(name, k0, n, x, u):
-        host.flag.reads = 0
+        host.reads = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1487,7 +1487,7 @@ def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
               device_busy_ms_per_step=f"{busy / n:.1f}",
               idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
               kernel_launches_per_step=f"{count / n:.0f}",
-              host_reads_per_step=f"{host.flag.reads / n:.1f}",
+              host_reads_per_step=f"{host.reads / n:.1f}",
               **{f"{'admm' if tag == 'lmpc' else 'sqp'}_iters_mean":
                  f"{c._last_iters.float().mean().item():.2f}"},
               **{k.replace(" ", "_"): f"{v / n:.2f}ms({100 * v / max(busy, 1e-9):.1f}%)"
@@ -1505,9 +1505,8 @@ def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
 
 
 def phase_profile_lmpc(torch, lt, host):
-    """``--profile``: the quadrotor closed loop (B=16384; the LMPC path reads
-    the host through ``.tolist()`` in its check blocks, which
-    ``host_reads_per_step`` does not count)."""
+    """``--profile``: the quadrotor closed loop (B=16384; ``host_reads_per_step``
+    counts every read of ``ops/_host.py``, one a check block among them)."""
     dev, f32 = "cuda", torch.float32
     Ad, Bd = quadrotor_model()
     Ad_t = torch.as_tensor(Ad, dtype=f32, device=dev)
@@ -2664,7 +2663,7 @@ def run_osc(torch, lt, tk, host, mods, B, K):
     reset_counts(*mods)
     tk.ipm_solve.trace = []
     lt.nlmpc_rollout.rescued = []
-    host.flag.reads = 0
+    host.reads = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = lt.nlmpc_rollout(c, osc_plant(torch, noise), x0,
@@ -2675,7 +2674,7 @@ def run_osc(torch, lt, tk, host, mods, B, K):
     trace, tk.ipm_solve.trace = tk.ipm_solve.trace, None
     rescued, lt.nlmpc_rollout.rescued = lt.nlmpc_rollout.rescued, None
     ipm = torch.cat(trace).cpu().numpy()
-    return c, r, launches, ipm, len(trace), rescued, host.flag.reads, wall
+    return c, r, launches, ipm, len(trace), rescued, host.reads, wall
 
 
 def phase_main_osc(torch, lt, tk, sqp, qpf, host, mods):
@@ -2974,13 +2973,13 @@ def phase_main_ugv(torch, lt, admm, batched_linalg, host, mods):
     c, plant, params_fn, x0, geometry = ugv_setup(torch, lt, torch.float32, B_UGV)
     reset_counts(*mods)
     batched_linalg.chol_inverse.trace, admm.admm_solve_each.trace = [], []
-    host.flag.reads = 0
+    host.reads = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, inputs, statuses, iters = run_ugv(torch, lt, c, plant, params_fn, x0, K_UGV)
     wall = time.perf_counter() - t0
     launches = read_counts(*mods)
-    reads = host.flag.reads
+    reads = host.reads
     shapes = k2_by_shape(batched_linalg.chol_inverse.trace)
     inner = admm.admm_solve_each.trace
     batched_linalg.chol_inverse.trace = admm.admm_solve_each.trace = None
@@ -3135,14 +3134,14 @@ def phase_profile_ugv(torch, lt, host, steps=2):
 
     def window():
         c, plant, params_fn, x0, _ = ugv_setup(torch, lt, torch.float32, B_UGV)
-        host.flag.reads = 0
+        host.reads = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = lt.nlmpc_rollout(c, plant, x0, torch.zeros((B_UGV, 2), dtype=torch.float32,
                                                        device="cuda"), steps,
                              params_fn=params_fn)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, host.flag.reads, r
+        return time.perf_counter() - t0, host.reads, r
 
     plain_wall, _, _ = window()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

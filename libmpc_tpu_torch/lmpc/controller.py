@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..dims import LDims
-from ..ops import admm
+from ..ops import _host, admm
 from ..types import (
     HorizonSlice,
     LParameters,
@@ -126,14 +126,15 @@ def _solve_body_hp(
     if built is None:
         built = build_prepared(dims, params, prob, y_ref, u_ref, du_ref, u_meas)
     P, A, lineq, uineq, prep = built
-    q, l, u = qp.build_time_varying(
-        dims, prob, lineq, uineq, x0, u0, y_ref, u_ref, du_ref, u_meas
-    )
-
-    use_warm = params.enable_warm_start
-    if use_warm and params.warm_start_shift:
-        warm_x, warm_y = qp.shift_warm_start(dims, warm_x, warm_y)
-    hw = torch.as_tensor(have_warm, device=x0.device)
+    with _host.span("libmpc.lmpc.assemble"):
+        q, l, u = qp.build_time_varying(
+            dims, prob, lineq, uineq, x0, u0, y_ref, u_ref, du_ref, u_meas
+        )
+        use_warm = params.enable_warm_start
+        if use_warm and params.warm_start_shift:
+            warm_x, warm_y = qp.shift_warm_start(dims, warm_x, warm_y)
+    # a fill, not a copy from the host: a copy would wait for the stream
+    hw = torch.full((), bool(have_warm), device=x0.device)
     sol = admm.admm_solve(
         P, A, q, l, u,
         params=params,
@@ -146,40 +147,41 @@ def _solve_body_hp(
         have_warm=hw if use_warm else None,
     )
 
-    states, inputs, outputs = qp.unpack_solution(dims, prob, sol.x, u_meas)
-    cmd = inputs[..., 0, :]
+    with _host.span("libmpc.lmpc.result"):
+        states, inputs, outputs = qp.unpack_solution(dims, prob, sol.x, u_meas)
+        cmd = inputs[..., 0, :]
 
-    status = _status_from_osqp(sol.status)
-    is_feasible = (
-        (sol.status == admm.OSQP_SOLVED)
-        | (sol.status == admm.OSQP_SOLVED_INACCURATE)
-        | (sol.status == admm.OSQP_MAX_ITER_REACHED)
-    )
+        status = _status_from_osqp(sol.status)
+        is_feasible = (
+            (sol.status == admm.OSQP_SOLVED)
+            | (sol.status == admm.OSQP_SOLVED_INACCURATE)
+            | (sol.status == admm.OSQP_MAX_ITER_REACHED)
+        )
 
-    # OSQP v0.6.3 stores NaN solutions on infeasibility (auxil.c
-    # store_solution), which the reference forwards verbatim; reproduce that
-    # while zeroing sequences on hard errors like LOptimizer.hpp:349-361.
-    infeasible = (sol.status == admm.OSQP_PRIMAL_INFEASIBLE) | (
-        sol.status == admm.OSQP_DUAL_INFEASIBLE
-    )
-    bad = ~torch.all(torch.isfinite(sol.x), dim=-1) & ~infeasible
-    cmd = torch.where(infeasible[..., None], float("nan"), cmd)
-    cmd = torch.where(bad[..., None], prev_cmd, cmd)
-    zero_mask = bad[..., None, None]
-    states = torch.where(zero_mask, 0.0, states)
-    inputs = torch.where(zero_mask, 0.0, inputs)
-    outputs = torch.where(zero_mask, 0.0, outputs)
-    cost = torch.where(bad | infeasible, float("inf"), sol.obj_val)
-    status = torch.where(bad, int(ResultStatus.ERROR), status)
+        # OSQP v0.6.3 stores NaN solutions on infeasibility (auxil.c
+        # store_solution), which the reference forwards verbatim; reproduce that
+        # while zeroing sequences on hard errors like LOptimizer.hpp:349-361.
+        infeasible = (sol.status == admm.OSQP_PRIMAL_INFEASIBLE) | (
+            sol.status == admm.OSQP_DUAL_INFEASIBLE
+        )
+        bad = ~torch.all(torch.isfinite(sol.x), dim=-1) & ~infeasible
+        cmd = torch.where(infeasible[..., None], float("nan"), cmd)
+        cmd = torch.where(bad[..., None], prev_cmd, cmd)
+        zero_mask = bad[..., None, None]
+        states = torch.where(zero_mask, 0.0, states)
+        inputs = torch.where(zero_mask, 0.0, inputs)
+        outputs = torch.where(zero_mask, 0.0, outputs)
+        cost = torch.where(bad | infeasible, float("inf"), sol.obj_val)
+        status = torch.where(bad, int(ResultStatus.ERROR), status)
 
-    result = Result(
-        cmd=cmd,
-        cost=cost,
-        status=status,
-        solver_status=sol.status,
-        is_feasible=is_feasible & ~bad,
-    )
-    seq = OptSequence(state=states, output=outputs, input=inputs)
+        result = Result(
+            cmd=cmd,
+            cost=cost,
+            status=status,
+            solver_status=sol.status,
+            is_feasible=is_feasible & ~bad,
+        )
+        seq = OptSequence(state=states, output=outputs, input=inputs)
     return result, seq, sol.x, sol.y, sol.iters
 
 
@@ -240,6 +242,7 @@ class LMPC:
         )
         self._profiler = Profiler()
         self._last_iters = None
+        self._solves = 0  # optimize calls, shown beside the optimize span
         self._stats_mode = "sync"  # see set_stats_mode
         # time_limit support: measured-cost iteration budget
         # (reference: Types.hpp:108-110 -> OSQP settings->time_limit)
@@ -592,6 +595,11 @@ class LMPC:
         ``x0``/``last_u`` may carry a leading batch axis; the whole batch is
         solved in one call on the controller's device.
         """
+        self._solves += 1
+        with _host.span("libmpc.lmpc.optimize", self._solves):
+            return self._optimize(x0, last_u)
+
+    def _optimize(self, x0, last_u) -> Result:
         x0 = self._t(x0)
         last_u = self._t(last_u)
         batch = tuple(x0.shape[:-1])
@@ -644,13 +652,14 @@ class LMPC:
             or self._params.verbose
         )
         if sync:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            elapsed = _time.monotonic() - t0
-            iters_max, status_val = torch.stack(
-                [iters.max().long(), result.status.max().long()]
-            ).tolist()
-            self._budgeter.record(elapsed, iters_max)
+            with _host.span("libmpc.lmpc.result"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                elapsed = _time.monotonic() - t0
+                iters_max, status_val = _host.values(torch.stack(
+                    [iters.max().long(), result.status.max().long()]
+                ))
+                self._budgeter.record(elapsed, iters_max)
         self._warm_x, self._warm_y = sol_x, sol_y
         self._result, self._sequence = result, seq
         self._last_iters = iters

@@ -24,7 +24,7 @@ from torch.func import jacfwd, vmap
 from torch.utils._pytree import tree_map
 
 from ..dims import NLDims
-from ..ops import sqp, trajectory_kkt
+from ..ops import _host, sqp, trajectory_kkt
 from ..types import (
     HorizonSlice,
     NLParameters,
@@ -116,6 +116,8 @@ class NLMPC:
         self._runtime_params = ()  # per-solve parameter pytree of tensors
         self._runtime_params_batched = False
         self._instance_bounds = None  # optional (B, nz) lb/ub override pair
+        self._bounds_key = self._bounds_dev = None  # the shared bounds on the device
+        self._solves = 0  # optimize calls, shown beside the optimize span
         self._traj_plan = None, False  # (plan, probed?)
 
     def _t(self, a) -> torch.Tensor:
@@ -399,13 +401,14 @@ class NLMPC:
         else:
             sol = solve()
 
-        X, U, slack = vmap(lambda zz, xx: nlp.unwrap(dims, zz, xx, ss, us))(sol.z, x0)
-        Y = vmap(lambda a, b, pp: nlp.get_output(dims, fns, a, b, pp),
-                 in_dims=(0, 0, p_dim))(X, U, p)
-        feas = vmap(
-            lambda zz, xx, pp: nlp.is_feasible(
-                dims, fns, ss, us, zz, xx, self._ineq_tol, self._eq_tol, pp),
-            in_dims=(0, 0, p_dim))(sol.z, x0, p)
+        with _host.span("libmpc.nlmpc.result"):
+            X, U, slack = vmap(lambda zz, xx: nlp.unwrap(dims, zz, xx, ss, us))(sol.z, x0)
+            Y = vmap(lambda a, b, pp: nlp.get_output(dims, fns, a, b, pp),
+                     in_dims=(0, 0, p_dim))(X, U, p)
+            feas = vmap(
+                lambda zz, xx, pp: nlp.is_feasible(
+                    dims, fns, ss, us, zz, xx, self._ineq_tol, self._eq_tol, pp),
+                in_dims=(0, 0, p_dim))(sol.z, x0, p)
         return sol, X, U, Y, slack, feas
 
     def _solve_compacted(self, solve, f_fn, ceq_fn, cin_fn, z, x0, p, p_dim, lb, ub,
@@ -418,15 +421,15 @@ class NLMPC:
         max_it = params.maximum_iteration
         carry = solve(it_hi=0, return_carry=True)
         hi = 0
-        while hi < max_it and int((carry.status == 0).sum()) > cap:
+        while hi < max_it and _host.values((carry.status == 0).sum()) > cap:
             hi += _CHUNK
             carry = solve(carry_in=carry, it_hi=hi, return_carry=True)
         left = (carry.status == 0) & (carry.it < max_it)
-        if bool(left.any()):
+        if _host.flag(left.any()):
             # at this point every active lane beyond the first `cap` has
             # already exhausted maximum_iteration, so the gather covers all
             # lanes with work left
-            idx = torch.nonzero(left)[:, 0]
+            idx = _host.nonzero(left)
             take = lambda a: a[idx]
             sub = sqp.sqp_solve(
                 f_fn, ceq_fn, cin_fn, take(z),
@@ -468,11 +471,17 @@ class NLMPC:
         return result, seq
 
     def _bounds_args(self):
-        """(lb, ub, batched?) for the current configuration."""
+        """(lb, ub, batched?) for the current configuration.  The shared
+        bounds are copied to the device when their values change, not every
+        call: a copy from the host waits for the stream."""
         if self._instance_bounds is not None:
             lb, ub = self._instance_bounds
             return lb, ub, True
-        return self._t(self._lb), self._t(self._ub), False
+        key = (self._lb.tobytes(), self._ub.tobytes())
+        if self._bounds_key != key:
+            self._bounds_dev = self._t(self._lb), self._t(self._ub)
+            self._bounds_key = key
+        return (*self._bounds_dev, False)
 
     def optimize(self, x0, last_u) -> Result:
         """Compute the optimal control action
@@ -480,6 +489,11 @@ class NLMPC:
 
         ``x0``/``last_u`` may carry one leading batch axis.
         """
+        self._solves += 1
+        with _host.span("libmpc.nlmpc.optimize", self._solves):
+            return self._optimize(x0, last_u)
+
+    def _optimize(self, x0, last_u) -> Result:
         x0 = self._t(x0)
         last_u = self._t(last_u)
         batch = tuple(x0.shape[:-1])
@@ -545,7 +559,8 @@ class NLMPC:
             last_u.reshape(lead + (self.dims.nu,)), slack0, p, p_batched, lb, ub,
             iter_budget,
         )
-        result, seq = self._pack_result(sol, X, U, Y, feas, prev_cmd)
+        with _host.span("libmpc.nlmpc.result"):
+            result, seq = self._pack_result(sol, X, U, Y, feas, prev_cmd)
         z_out, iters = sol.z, sol.iters
         if not batch:
             first = lambda a: a[0]
@@ -563,13 +578,14 @@ class NLMPC:
             or self._params.verbose
         )
         if sync:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            elapsed = _time.monotonic() - t0
-            iters_max, status_val = torch.stack(
-                [iters.max().long(), result.status.max().long()]
-            ).tolist()
-            self._budgeter.record(elapsed, iters_max)
+            with _host.span("libmpc.nlmpc.result"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                elapsed = _time.monotonic() - t0
+                iters_max, status_val = _host.values(torch.stack(
+                    [iters.max().long(), result.status.max().long()]
+                ))
+                self._budgeter.record(elapsed, iters_max)
             # populate the host-side status message like the reference's
             # exception reporting (NLOptimizer.hpp:550-571)
             if status_val == int(ResultStatus.ERROR):

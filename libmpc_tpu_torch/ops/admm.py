@@ -47,7 +47,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..types import LParameters
-from . import admm_fused, batched_linalg
+from . import _host, admm_fused, batched_linalg
 from .admm_fused import mm as _mm
 
 # -- OSQP status values (osqp/include/constants.h of OSQP v0.6.3) -----------
@@ -222,7 +222,8 @@ def _rho_vec_of(rho, eq_mask, loose_mask):
 
 
 def _scalar(v, like):
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    # a fill, not a copy from the host: a copy would wait for the stream
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def prepare_qp(P, A, q_ref, eq_mask, loose_mask,
@@ -301,7 +302,7 @@ def _polish_prep(P, A, eq_mask):
         w64 = eq_mask.double() / delta
         Mp64 = (P64 + delta * torch.eye(n, dtype=torch.float64, device=P.device)
                 + (A64.mT * w64[..., None, :]) @ A64)
-        inv = torch.cholesky_inverse(torch.linalg.cholesky(Mp64))
+        inv = torch.cholesky_inverse(_host.cholesky(Mp64))
         hi = inv.float()
         return hi, (inv - hi.double()).float()
     eye = torch.eye(n, dtype=dtype, device=P.device)
@@ -313,7 +314,7 @@ def _polish_prep(P, A, eq_mask):
     # the float32 floor
     s = torch.rsqrt(torch.clamp(torch.diagonal(Mp, dim1=-2, dim2=-1), min=1e-30))
     Ms = Mp * s[..., :, None] * s[..., None, :]
-    Msinv = torch.cholesky_inverse(torch.linalg.cholesky(Ms))
+    Msinv = torch.cholesky_inverse(_host.cholesky(Ms))
     for _ in range(2):
         Msinv = Msinv @ (2.0 * eye - Ms @ Msinv)
     Mpinv = Msinv * s[..., :, None] * s[..., None, :]
@@ -593,7 +594,7 @@ def _agreed_flags(mesh, all_done, need_update, block: int):
     D, di = mesh.shape["data"], mesh.data_index
     v = torch.zeros((4, D), dtype=torch.float64, device=all_done.device)
     v[:, di] = torch.stack([all_done, ~all_done, need_update, ~need_update]).to(torch.float64)
-    done, not_done, upd, not_upd = mesh.axis(None).max(v).tolist()
+    done, not_done, upd, not_upd = _host.values(mesh.axis(None).max(v))
     split = [i for i in range(D) if done[i] + not_done[i] != 1 or upd[i] + not_upd[i] != 1]
     if split:
         raise RuntimeError(
@@ -664,30 +665,33 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
         """Block ``k``: its iterations + termination check.  Returns the new
         state, whether every lane is done and the count of active lanes
         (None when sharded; one device-to-host read per block)."""
-        x, z, y = iterate(
-            state.x, state.z, state.y, state.done, qs, ls, us,
-            A, state.M, state.Minv, rho_vec_of(state.rho),
-            sigma=sigma_v, alpha=params.alpha, k_iters=check_every,
-            refine=refine,
-        )
-        state = state._replace(
-            x=x, z=z, y=y,
-            iters=state.iters + torch.where(state.done, 0, check_every).to(torch.int32),
-        )
-        state, need_update, rho_est = _termination_check(
-            state, P, A, qs, ls, us, d, e, c, params, axis_rows, axis_batch
-        )
-        if sharded:
-            all_done, update = _agreed_flags(
-                (axis_rows or axis_batch).mesh, state.done.all(), need_update, k)
-            n_active = None
-        else:
-            all_done, update, n_active = torch.stack([
-                state.done.all().long(), need_update.long(), (~state.done).sum(),
-            ]).tolist()
+        with _host.span("libmpc.admm.iterate"):
+            x, z, y = iterate(
+                state.x, state.z, state.y, state.done, qs, ls, us,
+                A, state.M, state.Minv, rho_vec_of(state.rho),
+                sigma=sigma_v, alpha=params.alpha, k_iters=check_every,
+                refine=refine,
+            )
+            state = state._replace(
+                x=x, z=z, y=y,
+                iters=state.iters + torch.where(state.done, 0, check_every).to(torch.int32),
+            )
+        with _host.span("libmpc.admm.check"):
+            state, need_update, rho_est = _termination_check(
+                state, P, A, qs, ls, us, d, e, c, params, axis_rows, axis_batch
+            )
+            if sharded:
+                all_done, update = _agreed_flags(
+                    (axis_rows or axis_batch).mesh, state.done.all(), need_update, k)
+                n_active = None
+            else:
+                all_done, update, n_active = _host.values(torch.stack([
+                    state.done.all().long(), need_update.long(), (~state.done).sum(),
+                ]))
         if update:
-            M, Minv = _build_kkt_inverse(P, A, rho_vec_of(rho_est), sigma_v, axis_rows)
-            state = state._replace(rho=rho_est, M=M, Minv=Minv)
+            with _host.span("libmpc.admm.refactor"):
+                M, Minv = _build_kkt_inverse(P, A, rho_vec_of(rho_est), sigma_v, axis_rows)
+                state = state._replace(rho=rho_est, M=M, Minv=Minv)
         return state, bool(all_done), n_active
 
     n_blocks = max(1, (n_iters + check_every - 1) // check_every)
@@ -712,17 +716,19 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
         k += 1
 
     if compact and go_on(k, stop):
-        # unconverged lanes first; ties among done lanes are harmless
-        _, idx = torch.topk((~state.done).to(torch.float32), cap)
-        sub = state._replace(**{f: getattr(state, f)[idx] for f in _LANE_FIELDS})
-        qs_c, ls_c, us_c = qs[idx], ls[idx], us[idx]
+        with _host.span("libmpc.admm.compact"):
+            # unconverged lanes first; ties among done lanes are harmless
+            _, idx = torch.topk((~state.done).to(torch.float32), cap)
+            sub = state._replace(**{f: getattr(state, f)[idx] for f in _LANE_FIELDS})
+            qs_c, ls_c, us_c = qs[idx], ls[idx], us[idx]
         while go_on(k, stop):
             sub, stop, _ = block(sub, qs_c, ls_c, us_c, k)
             k += 1
-        state = sub._replace(**{
-            f: getattr(state, f).index_copy(0, idx, getattr(sub, f))
-            for f in _LANE_FIELDS
-        })
+        with _host.span("libmpc.admm.compact"):
+            state = sub._replace(**{
+                f: getattr(state, f).index_copy(0, idx, getattr(sub, f))
+                for f in _LANE_FIELDS
+            })
 
     # instances that never converged: distinguish a budget (time-limit) stop
     # from an ordinary max-iteration exhaustion; a max-iteration exit
@@ -993,24 +999,25 @@ def _finish(state: _LoopState, prep: PreparedQP, P, A, q, l, u,
     pri_res, dua_res = state.pri_res, state.dua_res
 
     if params.polish:
-        if params.polish_mode == "shared" and axis_rows is None:
-            # a prepared cache built under no-polish params has no pair
-            pair = ((prep.Mpinv, prep.Mpinv_lo) if prep.Mpinv is not None
-                    else _polish_prep(P, A, prep.eq_mask))
-            x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
-                P, A, q, l, u, x, y, z, params, prep.eq_mask, *pair
-            )
-        else:
-            x_p, y_p, z_p, pri_p, dua_p = _polish(
-                P, A, q, l, u, x, y, z, params, prep.eq_mask, axis_rows
-            )
-        ok = (state.status == OSQP_SOLVED) | (state.status == OSQP_SOLVED_INACCURATE)
-        sel = ok[:, None]
-        x = torch.where(sel, x_p, x)
-        y = torch.where(sel, y_p, y)
-        z = torch.where(sel, z_p, z)
-        pri_res = torch.where(ok, pri_p, pri_res)
-        dua_res = torch.where(ok, dua_p, dua_res)
+        with _host.span("libmpc.admm.polish"):
+            if params.polish_mode == "shared" and axis_rows is None:
+                # a prepared cache built under no-polish params has no pair
+                pair = ((prep.Mpinv, prep.Mpinv_lo) if prep.Mpinv is not None
+                        else _polish_prep(P, A, prep.eq_mask))
+                x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
+                    P, A, q, l, u, x, y, z, params, prep.eq_mask, *pair
+                )
+            else:
+                x_p, y_p, z_p, pri_p, dua_p = _polish(
+                    P, A, q, l, u, x, y, z, params, prep.eq_mask, axis_rows
+                )
+            ok = (state.status == OSQP_SOLVED) | (state.status == OSQP_SOLVED_INACCURATE)
+            sel = ok[:, None]
+            x = torch.where(sel, x_p, x)
+            y = torch.where(sel, y_p, y)
+            z = torch.where(sel, z_p, z)
+            pri_res = torch.where(ok, pri_p, pri_res)
+            dua_res = torch.where(ok, dua_p, dua_res)
 
     obj = 0.5 * torch.sum(_mm(x, P) * x, dim=-1) + torch.sum(q * x, dim=-1)
     return QPSolution(
@@ -1071,105 +1078,107 @@ def admm_solve(
     the inputs were unbatched).
     """
     full_precision(P.device)
-    unbatched = q.dim() == 1
-    if unbatched:
-        q, l, u = q[None], l[None], u[None]
-        warm_x = None if warm_x is None else warm_x[None]
-        warm_y = None if warm_y is None else warm_y[None]
+    with _host.span("libmpc.admm.solve"):
+        unbatched = q.dim() == 1
+        if unbatched:
+            q, l, u = q[None], l[None], u[None]
+            warm_x = None if warm_x is None else warm_x[None]
+            warm_y = None if warm_y is None else warm_y[None]
 
-    dtype = P.dtype
-    dev = P.device
-    B, n = q.shape
-    m = A.shape[0]
-    # batched q with shared (m,) bounds: materialize the batch axis so every
-    # row operation (including the straggler-compaction gathers) sees (B, m)
-    if l.dim() == 1:
-        l = l.expand(B, m)
-    if u.dim() == 1:
-        u = u.expand(B, m)
+        dtype = P.dtype
+        dev = P.device
+        B, n = q.shape
+        m = A.shape[0]
+        # batched q with shared (m,) bounds: materialize the batch axis so every
+        # row operation (including the straggler-compaction gathers) sees (B, m)
+        if l.dim() == 1:
+            l = l.expand(B, m)
+        if u.dim() == 1:
+            u = u.expand(B, m)
 
-    # rho_vec is shared across the batch, so per-instance structure must
-    # reduce conservatively over the batch: a row gets the fast equality rho
-    # only when it is an equality in EVERY instance, and the loose rho only
-    # when it is loose in EVERY instance
-    if prepared is None:
-        if eq_mask is None:
-            eq_mask = torch.all((l == u) & torch.isfinite(l), dim=0)
-        loose_mask = torch.all((l <= -INF_BOUND) & (u >= INF_BOUND), dim=0)
-        q_ref = torch.amax(torch.abs(q), dim=0)
-        if axis_batch is not None:
-            q_ref = axis_batch.max(q_ref)
-        prepared = prepare_qp(P, A, q_ref, eq_mask, loose_mask, params, axis_rows)
+        # rho_vec is shared across the batch, so per-instance structure must
+        # reduce conservatively over the batch: a row gets the fast equality rho
+        # only when it is an equality in EVERY instance, and the loose rho only
+        # when it is loose in EVERY instance
+        if prepared is None:
+            if eq_mask is None:
+                eq_mask = torch.all((l == u) & torch.isfinite(l), dim=0)
+            loose_mask = torch.all((l <= -INF_BOUND) & (u >= INF_BOUND), dim=0)
+            q_ref = torch.amax(torch.abs(q), dim=0)
+            if axis_batch is not None:
+                q_ref = axis_batch.max(q_ref)
+            prepared = prepare_qp(P, A, q_ref, eq_mask, loose_mask, params, axis_rows)
 
-    Ps, As = prepared.Ps, prepared.As
-    d, e, c = prepared.d, prepared.e, prepared.c
-    eq_mask, loose_mask = prepared.eq_mask, prepared.loose_mask
-    qs, ls, us = _scale_data(prepared, q, l, u)
+        Ps, As = prepared.Ps, prepared.As
+        d, e, c = prepared.d, prepared.e, prepared.c
+        eq_mask, loose_mask = prepared.eq_mask, prepared.loose_mask
+        qs, ls, us = _scale_data(prepared, q, l, u)
 
-    sigma_v, rho_lo, rho_hi = _rho_bounds(dtype, params)
-    # cold-solve rho escalation (params.cold_rho): a batch with NO warm lane
-    # starts at the stiffer cold rho with its own KKT factor; a batch with
-    # any warm lane keeps the warm rho
-    rho0 = _scalar(params.rho, P)
-    M0_run, Minv0_run = prepared.M0, prepared.Minv0
-    if params.cold_rho > 0:
-        if have_warm is not None:
-            any_warm = bool(torch.as_tensor(have_warm).any())
+        sigma_v, rho_lo, rho_hi = _rho_bounds(dtype, params)
+        # cold-solve rho escalation (params.cold_rho): a batch with NO warm lane
+        # starts at the stiffer cold rho with its own KKT factor; a batch with
+        # any warm lane keeps the warm rho
+        rho0 = _scalar(params.rho, P)
+        M0_run, Minv0_run = prepared.M0, prepared.Minv0
+        if params.cold_rho > 0:
+            if have_warm is not None:
+                any_warm = _host.flag(torch.as_tensor(have_warm).any())
+            else:
+                any_warm = warm_x is not None and params.enable_warm_start
+            if not any_warm:
+                rho0 = torch.clamp(_scalar(params.cold_rho, P), rho_lo, rho_hi)
+                with _host.span("libmpc.admm.refactor"):
+                    M0_run, Minv0_run = _build_kkt_inverse(
+                        Ps, As, _rho_vec_of(rho0, eq_mask, loose_mask), sigma_v, axis_rows
+                    )
+
+        y_seed = torch.zeros((B, m), dtype=dtype, device=dev)
+        if params.cold_start in ("kkt", "kkt_duals"):
+            # seed the cold start at the minimizer of the rho-weighted
+            # equality-anchored quadratic model: one ADMM x-update at
+            # z = clip(0, l, u), y = 0, against the KKT inverse the cold solve
+            # will run with.  Under axis_rows the row product sums over the
+            # shards, as every cross-space product does, so x-space quantities
+            # replicate from the start (the JAX package leaves this one a
+            # shard's partial sum: ROADMAP.md, known reference behaviours)
+            rho_vec0 = _rho_vec_of(torch.clamp(rho0, rho_lo, rho_hi), eq_mask, loose_mask)
+            z_t = torch.clamp(torch.zeros_like(ls), min=ls, max=us)
+            x_seed = (_psum_rows((rho_vec0 * z_t) @ As, axis_rows) - qs) @ Minv0_run
+            if params.cold_start == "kkt_duals":
+                # the dual step ADMM itself would take from (x_seed, y=0)
+                Ax = x_seed @ As.T
+                y_seed = rho_vec0 * (Ax - torch.clamp(Ax, min=ls, max=us))
         else:
-            any_warm = warm_x is not None and params.enable_warm_start
-        if not any_warm:
-            rho0 = torch.clamp(_scalar(params.cold_rho, P), rho_lo, rho_hi)
-            M0_run, Minv0_run = _build_kkt_inverse(
-                Ps, As, _rho_vec_of(rho0, eq_mask, loose_mask), sigma_v, axis_rows
-            )
+            x_seed = torch.zeros((B, n), dtype=dtype, device=dev)
 
-    y_seed = torch.zeros((B, m), dtype=dtype, device=dev)
-    if params.cold_start in ("kkt", "kkt_duals"):
-        # seed the cold start at the minimizer of the rho-weighted
-        # equality-anchored quadratic model: one ADMM x-update at
-        # z = clip(0, l, u), y = 0, against the KKT inverse the cold solve
-        # will run with.  Under axis_rows the row product sums over the
-        # shards, as every cross-space product does, so x-space quantities
-        # replicate from the start (the JAX package leaves this one a
-        # shard's partial sum: ROADMAP.md, known reference behaviours)
-        rho_vec0 = _rho_vec_of(torch.clamp(rho0, rho_lo, rho_hi), eq_mask, loose_mask)
-        z_t = torch.clamp(torch.zeros_like(ls), min=ls, max=us)
-        x_seed = (_psum_rows((rho_vec0 * z_t) @ As, axis_rows) - qs) @ Minv0_run
-        if params.cold_start == "kkt_duals":
-            # the dual step ADMM itself would take from (x_seed, y=0)
-            Ax = x_seed @ As.T
-            y_seed = rho_vec0 * (Ax - torch.clamp(Ax, min=ls, max=us))
-    else:
-        x_seed = torch.zeros((B, n), dtype=dtype, device=dev)
-
-    if warm_x is not None and params.enable_warm_start:
-        y_warm = (torch.zeros((B, m), dtype=dtype, device=dev) if warm_y is None
-                  else warm_y / e[None, :] * c)
-        if have_warm is None:
-            x0, y0 = warm_x / d[None, :], y_warm
+        if warm_x is not None and params.enable_warm_start:
+            y_warm = (torch.zeros((B, m), dtype=dtype, device=dev) if warm_y is None
+                      else warm_y / e[None, :] * c)
+            if have_warm is None:
+                x0, y0 = warm_x / d[None, :], y_warm
+            else:
+                # callers that collapse "no warm state yet" into zero arrays pass
+                # the flag so the cold branch still gets its seed
+                hw = torch.as_tensor(have_warm, device=dev)
+                hw2 = hw[..., None] if hw.dim() else hw
+                x0 = torch.where(hw2, warm_x / d[None, :], x_seed)
+                y0 = torch.where(hw2, y_warm, y_seed)
         else:
-            # callers that collapse "no warm state yet" into zero arrays pass
-            # the flag so the cold branch still gets its seed
-            hw = torch.as_tensor(have_warm, device=dev)
-            hw2 = hw[..., None] if hw.dim() else hw
-            x0 = torch.where(hw2, warm_x / d[None, :], x_seed)
-            y0 = torch.where(hw2, y_warm, y_seed)
-    else:
-        x0, y0 = x_seed, y_seed
+            x0, y0 = x_seed, y_seed
 
-    state = _admm_loop(
-        Ps, As, qs, ls, us, x0.contiguous(), y0.contiguous(),
-        rho0, eq_mask, loose_mask, d, e, c,
-        M0_run, Minv0_run, NO_BUDGET if iter_budget is None else iter_budget,
-        params, params.maximum_iteration,
-        min(params.check_termination, params.maximum_iteration),
-        axis_rows, axis_batch,
-    )
+        state = _admm_loop(
+            Ps, As, qs, ls, us, x0.contiguous(), y0.contiguous(),
+            rho0, eq_mask, loose_mask, d, e, c,
+            M0_run, Minv0_run, NO_BUDGET if iter_budget is None else iter_budget,
+            params, params.maximum_iteration,
+            min(params.check_termination, params.maximum_iteration),
+            axis_rows, axis_batch,
+        )
 
-    sol = _finish(state, prepared, P, A, q, l, u, params, axis_rows)
-    if unbatched:
-        sol = QPSolution(*(t[0] for t in sol))
-    return sol
+        sol = _finish(state, prepared, P, A, q, l, u, params, axis_rows)
+        if unbatched:
+            sol = QPSolution(*(t[0] for t in sol))
+        return sol
 
 
 class _EachData(NamedTuple):
@@ -1303,8 +1312,9 @@ def _admm_loop_each(P, A, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
     adaptive-rho test passes gets its KKT inverse rebuilt, and only those
     lanes are refactorized (under the JAX package's vmap the ``lax.cond``
     becomes a select that computes it for every lane and keeps it for
-    these).  One read from the device a block: the counts of finished lanes
-    and of refactorizations.
+    these).  One read from the device a block, the counts of finished lanes
+    and of refactorizations, and one for each index set of lanes that a
+    block refactorizes, finishes or keeps (all through ``_host``).
 
     On the card (:func:`_use_graphs`) each block replays as a CUDA graph
     (:class:`_BlockGraph`) instead of launching its kernels one by one.  The
@@ -1337,52 +1347,58 @@ def _admm_loop_each(P, A, qs, ls, us, x0, y0, eq_mask, loose_mask, d, e, c,
     lanes = torch.arange(B, device=dev)  # the original index of each running lane
     graph = None
     if _use_graphs(dev):
-        graph = _BlockGraph.get(_bucket(B), state, data, params, check_every)
-        graph.load(state, data)
+        with _host.span("libmpc.admm_each.compact"):
+            graph = _BlockGraph.get(_bucket(B), state, data, params, check_every)
+            graph.load(state, data)
     n_blocks = max(1, (n_iters + check_every - 1) // check_every)
     for k in range(n_blocks):
         n = lanes.numel()
-        if graph is None:
-            state, need_update, rho_est = _each_block(state, data, params, check_every)
-        else:
-            # the graph's tensors hold the n running lanes first
-            state, need_update, rho_est = graph.run()
-            state = _LoopState(*(t[:n] for t in state))
-            need_update, rho_est = need_update[:n], rho_est[:n]
-            data = _EachData(*(t[:n] for t in graph.data))
-        n_done, n_update = torch.stack([state.done.sum(), need_update.sum()]).tolist()
-        if n_update:
-            iu = torch.nonzero(need_update)[:, 0]
-            rho_u = rho_est[iu]
-            M_u, Minv_u = _build_kkt_inverse(
-                data.P[iu], data.A[iu],
-                _rho_vec_of(rho_u[:, None], data.eq_mask[iu], data.loose_mask[iu]), sigma_v,
-            )
+        with _host.span("libmpc.admm_each.block"):
             if graph is None:
-                state = state._replace(
-                    rho=state.rho.index_copy(0, iu, rho_u),
-                    M=state.M.index_copy(0, iu, M_u), Minv=state.Minv.index_copy(0, iu, Minv_u),
+                state, need_update, rho_est = _each_block(state, data, params, check_every)
+            else:
+                # the graph's tensors hold the n running lanes first
+                state, need_update, rho_est = graph.run()
+                state = _LoopState(*(t[:n] for t in state))
+                need_update, rho_est = need_update[:n], rho_est[:n]
+                data = _EachData(*(t[:n] for t in graph.data))
+            n_done, n_update = _host.values(torch.stack([state.done.sum(), need_update.sum()]))
+        if n_update:
+            with _host.span("libmpc.admm_each.refactor"):
+                iu = _host.nonzero(need_update)
+                rho_u = rho_est[iu]
+                M_u, Minv_u = _build_kkt_inverse(
+                    data.P[iu], data.A[iu],
+                    _rho_vec_of(rho_u[:, None], data.eq_mask[iu], data.loose_mask[iu]), sigma_v,
                 )
-            else:  # in place, in the graph's tensors
-                state.rho.index_copy_(0, iu, rho_u)
-                state.M.index_copy_(0, iu, M_u)
-                state.Minv.index_copy_(0, iu, Minv_u)
+                if graph is None:
+                    state = state._replace(
+                        rho=state.rho.index_copy(0, iu, rho_u),
+                        M=state.M.index_copy(0, iu, M_u),
+                        Minv=state.Minv.index_copy(0, iu, Minv_u),
+                    )
+                else:  # in place, in the graph's tensors
+                    state.rho.index_copy_(0, iu, rho_u)
+                    state.M.index_copy_(0, iu, M_u)
+                    state.Minv.index_copy_(0, iu, Minv_u)
         last = k == n_blocks - 1 or n_done == n
         if n_done or last:
-            fin = torch.nonzero(torch.ones_like(state.done) if last else state.done)[:, 0]
-            out = out._replace(**{
-                f: getattr(out, f).index_copy(0, lanes[fin], getattr(state, f)[fin])
-                for f in _LANE_FIELDS
-            })
-            if last:
-                break
-            keep = torch.nonzero(~state.done)[:, 0]
-            state = _LoopState(*(t[keep] for t in state))
-            data = _EachData(*(t[keep] for t in data))
-            lanes = lanes[keep]
-            if graph is not None:
-                graph = _BlockGraph.get(_bucket(keep.numel()), state, data, params, check_every)
-                graph.load(state, data)
+            with _host.span("libmpc.admm_each.compact"):
+                fin = _host.nonzero(torch.ones_like(state.done) if last else state.done)
+                out = out._replace(**{
+                    f: getattr(out, f).index_copy(0, lanes[fin], getattr(state, f)[fin])
+                    for f in _LANE_FIELDS
+                })
+                if last:
+                    break
+                keep = _host.nonzero(~state.done)
+                state = _LoopState(*(t[keep] for t in state))
+                data = _EachData(*(t[keep] for t in data))
+                lanes = lanes[keep]
+                if graph is not None:
+                    graph = _BlockGraph.get(_bucket(keep.numel()), state, data, params,
+                                            check_every)
+                    graph.load(state, data)
     # lanes that never converged report the relaxed-tolerance verdict of
     # their final check
     status = torch.where(out.status == OSQP_UNSOLVED, out.inacc_status, out.status)

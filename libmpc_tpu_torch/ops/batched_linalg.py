@@ -39,8 +39,9 @@ too).
 
 :func:`spd_inverse` and :func:`spd_solve` are batch-first: an unbatched
 (n, n) matrix uses ``torch.linalg.cholesky`` (XLA's Cholesky in the JAX
-package), a batched one routes to :func:`chol_inverse` or, on the card past
-the kernel's gate, to :func:`chol_inverse_blocked`.  Their callers are the
+package; through ``_host.cholesky``, which counts its status read), a
+batched one routes to :func:`chol_inverse` or, on the card past the
+kernel's gate, to :func:`chol_inverse_blocked`.  Their callers are the
 SQP's second-order correction (``ops/sqp.py``, k = me), the float32 interior
 point (``ops/pdip.py``, k = nz + 1 and k = me), the border Schur complement
 of the banded-KKT factorization (``ops/trajectory_kkt.py``, k = nu + 2) and
@@ -58,7 +59,7 @@ from collections import namedtuple
 
 import torch
 
-from . import _build
+from . import _build, _host
 
 MAX_K = 64
 # diagonal-block width of the blocked recursion (the JAX package's _BLOCK_K)
@@ -328,7 +329,7 @@ def _batched_inverse(M):
 def spd_inverse(M):
     """Explicit inverse of an SPD matrix (n, n), or of a batch (B, k, k)."""
     if M.dim() == 2:
-        return torch.cholesky_inverse(torch.linalg.cholesky(M))
+        return torch.cholesky_inverse(_host.cholesky(M))
     return _batched_inverse(M)
 
 
@@ -336,6 +337,6 @@ def spd_solve(M, rhs):
     """Solve ``M x = rhs`` for SPD ``M``: (n, n) with (n,), or a batch
     (B, k, k) with (B, k)."""
     if M.dim() == 2:
-        L = torch.linalg.cholesky(M)
+        L = _host.cholesky(M)
         return torch.cholesky_solve(rhs[:, None], L)[:, 0]
     return torch.einsum("bij,bj->bi", _batched_inverse(M), rhs.to(M.dtype)).to(rhs.dtype)

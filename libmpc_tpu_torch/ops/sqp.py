@@ -184,7 +184,7 @@ def _power_convexify(H):
 def _eigh_convexify(H):
     """Clip eigenvalues to a 1e-6-relative floor: the tightest convex model
     of H (costs an eigendecomposition per iteration)."""
-    w, V = torch.linalg.eigh(H)
+    w, V = _host.eigh(H)
     tau = torch.clamp(1e-6 * _amax_abs(w), min=1e-8)
     return (V * torch.maximum(w, tau[:, None])[:, None, :]) @ V.transpose(1, 2)
 
@@ -437,194 +437,196 @@ def sqp_solve(
                      if engine == "riccati" else None)
 
     def body(s: Carry, active) -> Carry:
-        g, f = v_grad_f(s.z, *args)
-        ce = v_ceq(s.z, *args)
-        Je = v_jac_eq(s.z, *args)
-        if v_cin is not None:
-            ci = v_cin(s.z, *args)
-            Ji = v_jac_in(s.z, *args)
-        else:
-            ci = torch.zeros((Bt, 0), **kw)
-            Ji = torch.zeros((Bt, 0, nz), **kw)
-
-        ok_upd = None
-        if use_bfgs:
-            # -- damped BFGS curvature model (Powell's rule) ----------------
-            # y uses multipliers fixed at the *current* estimate:
-            # y = grad_z L(z, lam) - grad_z L(z_prev, lam), both sides
-            # contracted with the same lam
-            gL = g + _vm(s.lam_e, Je) + (_vm(s.lam_i, Ji) if mi else 0.0)
-            gL_old = (s.g_prev + _vm(s.lam_e, s.Je_prev)
-                      + (_vm(s.lam_i, s.Ji_prev) if mi else 0.0))
-            sv = s.z - s.z_prev
-            y = gL - gL_old
-            # Shanno-Phua sizing on the first curvature pair: replace the
-            # unit initialization with gamma*I, gamma = y'y/s'y, so the
-            # model starts at the right scale
-            sy = _dot(sv, y)
-            gamma = torch.clamp(_dot(y, y) / torch.where(sy <= 0.0, 1.0, sy), 1e-3, 1e6)
-            first_pair = ~s.have_scaled & (sy > 0.0)
-            Bbase = _sel(first_pair, gamma[:, None, None] * eye_z, s.Bmat)
-            Bs = _mv(Bbase, sv)
-            sBs = _dot(sv, Bs)
-            theta = torch.where(
-                sy >= 0.2 * sBs, 1.0,
-                0.8 * sBs / torch.where(sBs - sy == 0.0, 1.0, sBs - sy))[:, None]
-            yd = theta * y + (1.0 - theta) * Bs
-            syd = _dot(sv, yd)
-            ok_upd = (s.have_prev & (sBs > 1e-12) & (syd > 1e-12)
-                      & (_amax_abs(sv) > 0.0))
-            outer = lambda a: a[:, :, None] * a[:, None, :]
-            B_upd = (Bbase
-                     - outer(Bs) / torch.where(sBs == 0.0, 1.0, sBs)[:, None, None]
-                     + outer(yd) / torch.where(syd == 0.0, 1.0, syd)[:, None, None])
-            Bm = _sel(ok_upd, B_upd, s.Bmat)
-        elif use_gn:
-            Bm = B_gn  # constant objective-curvature model (see above)
-        else:
-            # -- convexified exact Hessian ----------------------------------
-            H = v_hess_L(s.z, s.lam_e, s.lam_i, *args)
-            H = 0.5 * (H + H.transpose(1, 2))
-            if params.hessian_reg == "gershgorin":
-                Bm = _gershgorin_convexify(H)
-            elif params.hessian_reg == "power":
-                Bm = _power_convexify(H)
+        with _host.span("libmpc.sqp.derivatives"):
+            g, f = v_grad_f(s.z, *args)
+            ce = v_ceq(s.z, *args)
+            Je = v_jac_eq(s.z, *args)
+            if v_cin is not None:
+                ci = v_cin(s.z, *args)
+                Ji = v_jac_in(s.z, *args)
             else:
-                Bm = _eigh_convexify(H)
+                ci = torch.zeros((Bt, 0), **kw)
+                Ji = torch.zeros((Bt, 0, nz), **kw)
+
+            ok_upd = None
+            if use_bfgs:
+                # -- damped BFGS curvature model (Powell's rule) ----------------
+                # y uses multipliers fixed at the *current* estimate:
+                # y = grad_z L(z, lam) - grad_z L(z_prev, lam), both sides
+                # contracted with the same lam
+                gL = g + _vm(s.lam_e, Je) + (_vm(s.lam_i, Ji) if mi else 0.0)
+                gL_old = (s.g_prev + _vm(s.lam_e, s.Je_prev)
+                          + (_vm(s.lam_i, s.Ji_prev) if mi else 0.0))
+                sv = s.z - s.z_prev
+                y = gL - gL_old
+                # Shanno-Phua sizing on the first curvature pair: replace the
+                # unit initialization with gamma*I, gamma = y'y/s'y, so the
+                # model starts at the right scale
+                sy = _dot(sv, y)
+                gamma = torch.clamp(_dot(y, y) / torch.where(sy <= 0.0, 1.0, sy), 1e-3, 1e6)
+                first_pair = ~s.have_scaled & (sy > 0.0)
+                Bbase = _sel(first_pair, gamma[:, None, None] * eye_z, s.Bmat)
+                Bs = _mv(Bbase, sv)
+                sBs = _dot(sv, Bs)
+                theta = torch.where(
+                    sy >= 0.2 * sBs, 1.0,
+                    0.8 * sBs / torch.where(sBs - sy == 0.0, 1.0, sBs - sy))[:, None]
+                yd = theta * y + (1.0 - theta) * Bs
+                syd = _dot(sv, yd)
+                ok_upd = (s.have_prev & (sBs > 1e-12) & (syd > 1e-12)
+                          & (_amax_abs(sv) > 0.0))
+                outer = lambda a: a[:, :, None] * a[:, None, :]
+                B_upd = (Bbase
+                         - outer(Bs) / torch.where(sBs == 0.0, 1.0, sBs)[:, None, None]
+                         + outer(yd) / torch.where(syd == 0.0, 1.0, syd)[:, None, None])
+                Bm = _sel(ok_upd, B_upd, s.Bmat)
+            elif use_gn:
+                Bm = B_gn  # constant objective-curvature model (see above)
+            else:
+                # -- convexified exact Hessian ----------------------------------
+                H = v_hess_L(s.z, s.lam_e, s.lam_i, *args)
+                H = 0.5 * (H + H.transpose(1, 2))
+                if params.hessian_reg == "gershgorin":
+                    Bm = _gershgorin_convexify(H)
+                elif params.hessian_reg == "power":
+                    Bm = _power_convexify(H)
+                else:
+                    Bm = _eigh_convexify(H)
 
         # -- QP subproblem:  min 1/2 d'Bd + g'd
         #    s.t. Je d = -ce ; Ji d <= -ci ; lb-z <= d <= ub-z ---------------
         finite = lambda v: torch.all(torch.isfinite(v), dim=-1)
-        if engine == "riccati":
-            # banded-KKT interior point: the same elastic-relaxed Mehrotra
-            # IPM as the pdip engine (identical to machine precision,
-            # tests/test_torch_trajectory_kkt.py), with every Newton system
-            # solved by the stage recursion instead of dense inverses.  Box
-            # bounds stay implicit (diagonal barrier weights), so no
-            # (2nz, nz) identity rows are materialized.
-            ci_pos = torch.clamp(ci, min=0.0)
-            dual_scale = torch.amax(
-                torch.cat([torch.abs(s.lam_e), torch.abs(s.lam_i), s.mu_e, s.mu_i,
-                           torch.ones((Bt, 1), **kw)], dim=1), dim=1)
-            rho_q = (1e4 if f32 else 1e8) * dual_scale * (
-                1.0 + torch.sum(torch.abs(ce), dim=1) + torch.sum(ci_pos, dim=1))
-            # IPM cap policy: flat ``inner_iters`` (45 when unset); a lane
-            # whose previous direction failed the line search gets the deep
-            # cap ``inner_iters_recovery``, clamped so that it never
-            # de-escalates.  The rollout's compacted rescue
-            # (NLParameters.rescue_iters) is the two-phase alternative.
-            it_base = params.inner_iters or 45
-            it_deep = max(params.inner_iters_recovery or it_base, it_base)
-            ipm_cap = torch.where(s.ls_fails > 0, it_deep, it_base).to(torch.int32)
-            ip = trajectory_kkt.ipm_solve(
-                traj_plan, Bm, g, Je, ce, Ji, ci, lb - s.z, ub - s.z, rho_q,
-                n_iters=max(it_base, it_deep), lane_cap=ipm_cap,
-                eps=1e-7 if f32 else 1e-10,
-                h_blocks=gn_blocks if use_gn else None,
-                # no dual warm start, as the JAX package: the non-central
-                # start costs SQP iterations (ipm_solve's warm_y hook stays)
-                warm_y=None,
-            )
-            ip_ok = finite(ip.d) & finite(ip.nu) & finite(ip.lam)
-            d = _sel(ip_ok, ip.d, torch.zeros_like(s.z))
-            lam_e = _sel(ip_ok, ip.nu, s.lam_e)
-            lam_i = _sel(ip_ok, ip.lam, s.lam_i)
-            qp_x_new = d
-            qp_y_new = s.qp_y
-        elif engine == "pdip":
-            # interior-point engine: box bounds folded into inequality rows
-            # (+-identity), infinite bounds masked out of the barrier.
-            #
-            # Elastic relaxation (the analog of SLSQP's augmented problem
-            # for inconsistent linearizations, Kraft's slsqp.f "relaxed
-            # problem with bound on x(n1)"): one extra FREE variable xi
-            # retreats every constraint toward its value at d=0, so the
-            # subproblem is ALWAYS feasible (d=0, xi=1 satisfies it).  xi is
-            # unconstrained with a large QUADRATIC penalty: at the optimum
-            # xi = (nu'ce + lam'ci+)/rho_q, so the equality bias vanishes
-            # QUADRATICALLY in the constraint violation, preserving the
-            # SQP's Newton-rate constraint convergence at no extra rows.
-            ci_pos = torch.clamp(ci, min=0.0)
-            dual_scale = torch.amax(
-                torch.cat([torch.abs(s.lam_e), torch.abs(s.lam_i), s.mu_e, s.mu_i,
-                           torch.ones((Bt, 1), **kw)], dim=1), dim=1)
-            rho_q = (1e4 if f32 else 1e8) * dual_scale * (
-                1.0 + torch.sum(torch.abs(ce), dim=1) + torch.sum(ci_pos, dim=1))
-            B_aug = torch.zeros((Bt, nz + 1, nz + 1), **kw)
-            B_aug[:, :nz, :nz] = Bm
-            B_aug[:, nz, nz] = rho_q
-            zero_col = torch.zeros((Bt, nz, 1), **kw)
-            eye_b = eye_z.expand(Bt, nz, nz)
-            g_aug = torch.cat([g, torch.zeros((Bt, 1), **kw)], dim=1)
-            Je_aug = torch.cat([Je, -ce[:, :, None]], dim=2)
-            Ji_all = torch.cat([
-                torch.cat([Ji, -ci_pos[:, :, None]], dim=2),
-                torch.cat([eye_b, zero_col], dim=2),
-                torch.cat([-eye_b, zero_col], dim=2),
-            ], dim=1)
-            bi_all = torch.cat([-ci, finite_ub - s.z, s.z - finite_lb], dim=1)
-            mask_all = torch.cat([
-                torch.ones((Bt, mi), dtype=torch.bool, device=dev),
-                torch.isfinite(ub).expand(Bt, nz),
-                torch.isfinite(lb).expand(Bt, nz),
-            ], dim=1)
-            ip = pdip.pdip_solve(
-                B_aug, g_aug, Je_aug, -ce, Ji_all, bi_all, mask_all,
-                n_iters=30, eps=1e-7 if f32 else 1e-10,
-            )
-            # defensive: a degenerate subproblem must not poison the outer
-            # iteration — a zero direction is simply rejected by the line
-            # search and the multiplier estimates keep their last values
-            ip_ok = finite(ip.d) & finite(ip.nu) & finite(ip.lam)
-            d = _sel(ip_ok, ip.d[:, :nz], torch.zeros_like(s.z))
-            lam_e = _sel(ip_ok, ip.nu, s.lam_e)
-            lam_i = _sel(ip_ok, ip.lam[:, :mi], s.lam_i)
-            qp_x_new = d
-            qp_y_new = s.qp_y
-        elif engine == "fused":
-            # fused ADMM: the whole batch of inner QPs solves in one kernel
-            # launch (ops/qp_inner_fused.py) — host-side Ruiz, in-kernel
-            # Cholesky + iteration loop + adaptive rho
-            A_qp, l_qp, u_qp = qp_rows(Je, Ji, ce, ci, s.z)
-            loose = (l_qp <= -1e18) & (u_qp >= 1e18)
-            rho_v = admm._rho_vec_of(torch.as_tensor(qp_par.rho, **kw), eq_mask, loose)
-            x_f, y_f, *_ = qp_inner_fused.solve_batched(
-                Bm, A_qp, g, l_qp, u_qp, rho_v, s.qp_x, s.qp_y,
-                sigma=1e-5,
-                alpha=qp_par.alpha,
-                eps_abs=max(qp_par.eps_abs, 5e-6),
-                eps_rel=max(qp_par.eps_rel, 5e-6),
-                # warm-started SQP subproblems converge in a few check blocks
-                max_iter=min(qp_par.maximum_iteration, 300),
-                check_every=qp_par.check_termination,
-            )
-            qp_ok = finite(x_f) & finite(y_f)
-            d = _sel(qp_ok, x_f, torch.zeros_like(x_f))
-            lam_e = _sel(qp_ok, y_f[:, :me], s.lam_e)
-            lam_i = _sel(qp_ok, y_f[:, me:me + mi], s.lam_i)
-            qp_x_new = d
-            qp_y_new = _sel(qp_ok, y_f, s.qp_y)
-        else:
-            # per-instance ADMM (ops/admm.py::admm_solve_each): each lane's
-            # subproblem with its own scaling and KKT inverse, warm-started
-            # from the previous SQP iteration's direction and duals — across
-            # iterations the QP changes slowly, so the inner ADMM typically
-            # converges in a fraction of the cold iterations.  No finiteness
-            # select, as in the JAX package.  Only the lanes still iterating
-            # are solved: each lane's solve is its own, and the loop's select
-            # discards the others' values.
-            A_qp, l_qp, u_qp = qp_rows(Je, Ji, ce, ci, s.z)
-            idx = torch.nonzero(active)[:, 0]
-            part = (lambda t: t) if idx.numel() == Bt else (lambda t: t[idx])
-            sol = admm.admm_solve_each(
-                part(Bm), part(A_qp), part(g), part(l_qp), part(u_qp), params=qp_par,
-                eq_mask=eq_mask, warm_x=part(s.qp_x), warm_y=part(s.qp_y))
-            put = lambda old, new: old.index_copy(0, idx, new)
-            d = put(torch.zeros_like(s.z), sol.x)
-            lam_e = put(s.lam_e, sol.y[:, :me])
-            lam_i = put(s.lam_i, sol.y[:, me:me + mi])
-            qp_x_new = d
-            qp_y_new = put(s.qp_y, sol.y)
+        with _host.span("libmpc.sqp.inner_qp"):
+            if engine == "riccati":
+                # banded-KKT interior point: the same elastic-relaxed Mehrotra
+                # IPM as the pdip engine (identical to machine precision,
+                # tests/test_torch_trajectory_kkt.py), with every Newton system
+                # solved by the stage recursion instead of dense inverses.  Box
+                # bounds stay implicit (diagonal barrier weights), so no
+                # (2nz, nz) identity rows are materialized.
+                ci_pos = torch.clamp(ci, min=0.0)
+                dual_scale = torch.amax(
+                    torch.cat([torch.abs(s.lam_e), torch.abs(s.lam_i), s.mu_e, s.mu_i,
+                               torch.ones((Bt, 1), **kw)], dim=1), dim=1)
+                rho_q = (1e4 if f32 else 1e8) * dual_scale * (
+                    1.0 + torch.sum(torch.abs(ce), dim=1) + torch.sum(ci_pos, dim=1))
+                # IPM cap policy: flat ``inner_iters`` (45 when unset); a lane
+                # whose previous direction failed the line search gets the deep
+                # cap ``inner_iters_recovery``, clamped so that it never
+                # de-escalates.  The rollout's compacted rescue
+                # (NLParameters.rescue_iters) is the two-phase alternative.
+                it_base = params.inner_iters or 45
+                it_deep = max(params.inner_iters_recovery or it_base, it_base)
+                ipm_cap = torch.where(s.ls_fails > 0, it_deep, it_base).to(torch.int32)
+                ip = trajectory_kkt.ipm_solve(
+                    traj_plan, Bm, g, Je, ce, Ji, ci, lb - s.z, ub - s.z, rho_q,
+                    n_iters=max(it_base, it_deep), lane_cap=ipm_cap,
+                    eps=1e-7 if f32 else 1e-10,
+                    h_blocks=gn_blocks if use_gn else None,
+                    # no dual warm start, as the JAX package: the non-central
+                    # start costs SQP iterations (ipm_solve's warm_y hook stays)
+                    warm_y=None,
+                )
+                ip_ok = finite(ip.d) & finite(ip.nu) & finite(ip.lam)
+                d = _sel(ip_ok, ip.d, torch.zeros_like(s.z))
+                lam_e = _sel(ip_ok, ip.nu, s.lam_e)
+                lam_i = _sel(ip_ok, ip.lam, s.lam_i)
+                qp_x_new = d
+                qp_y_new = s.qp_y
+            elif engine == "pdip":
+                # interior-point engine: box bounds folded into inequality rows
+                # (+-identity), infinite bounds masked out of the barrier.
+                #
+                # Elastic relaxation (the analog of SLSQP's augmented problem
+                # for inconsistent linearizations, Kraft's slsqp.f "relaxed
+                # problem with bound on x(n1)"): one extra FREE variable xi
+                # retreats every constraint toward its value at d=0, so the
+                # subproblem is ALWAYS feasible (d=0, xi=1 satisfies it).  xi is
+                # unconstrained with a large QUADRATIC penalty: at the optimum
+                # xi = (nu'ce + lam'ci+)/rho_q, so the equality bias vanishes
+                # QUADRATICALLY in the constraint violation, preserving the
+                # SQP's Newton-rate constraint convergence at no extra rows.
+                ci_pos = torch.clamp(ci, min=0.0)
+                dual_scale = torch.amax(
+                    torch.cat([torch.abs(s.lam_e), torch.abs(s.lam_i), s.mu_e, s.mu_i,
+                               torch.ones((Bt, 1), **kw)], dim=1), dim=1)
+                rho_q = (1e4 if f32 else 1e8) * dual_scale * (
+                    1.0 + torch.sum(torch.abs(ce), dim=1) + torch.sum(ci_pos, dim=1))
+                B_aug = torch.zeros((Bt, nz + 1, nz + 1), **kw)
+                B_aug[:, :nz, :nz] = Bm
+                B_aug[:, nz, nz] = rho_q
+                zero_col = torch.zeros((Bt, nz, 1), **kw)
+                eye_b = eye_z.expand(Bt, nz, nz)
+                g_aug = torch.cat([g, torch.zeros((Bt, 1), **kw)], dim=1)
+                Je_aug = torch.cat([Je, -ce[:, :, None]], dim=2)
+                Ji_all = torch.cat([
+                    torch.cat([Ji, -ci_pos[:, :, None]], dim=2),
+                    torch.cat([eye_b, zero_col], dim=2),
+                    torch.cat([-eye_b, zero_col], dim=2),
+                ], dim=1)
+                bi_all = torch.cat([-ci, finite_ub - s.z, s.z - finite_lb], dim=1)
+                mask_all = torch.cat([
+                    torch.ones((Bt, mi), dtype=torch.bool, device=dev),
+                    torch.isfinite(ub).expand(Bt, nz),
+                    torch.isfinite(lb).expand(Bt, nz),
+                ], dim=1)
+                ip = pdip.pdip_solve(
+                    B_aug, g_aug, Je_aug, -ce, Ji_all, bi_all, mask_all,
+                    n_iters=30, eps=1e-7 if f32 else 1e-10,
+                )
+                # defensive: a degenerate subproblem must not poison the outer
+                # iteration — a zero direction is simply rejected by the line
+                # search and the multiplier estimates keep their last values
+                ip_ok = finite(ip.d) & finite(ip.nu) & finite(ip.lam)
+                d = _sel(ip_ok, ip.d[:, :nz], torch.zeros_like(s.z))
+                lam_e = _sel(ip_ok, ip.nu, s.lam_e)
+                lam_i = _sel(ip_ok, ip.lam[:, :mi], s.lam_i)
+                qp_x_new = d
+                qp_y_new = s.qp_y
+            elif engine == "fused":
+                # fused ADMM: the whole batch of inner QPs solves in one kernel
+                # launch (ops/qp_inner_fused.py) — host-side Ruiz, in-kernel
+                # Cholesky + iteration loop + adaptive rho
+                A_qp, l_qp, u_qp = qp_rows(Je, Ji, ce, ci, s.z)
+                loose = (l_qp <= -1e18) & (u_qp >= 1e18)
+                rho_v = admm._rho_vec_of(torch.full((), qp_par.rho, **kw), eq_mask, loose)
+                x_f, y_f, *_ = qp_inner_fused.solve_batched(
+                    Bm, A_qp, g, l_qp, u_qp, rho_v, s.qp_x, s.qp_y,
+                    sigma=1e-5,
+                    alpha=qp_par.alpha,
+                    eps_abs=max(qp_par.eps_abs, 5e-6),
+                    eps_rel=max(qp_par.eps_rel, 5e-6),
+                    # warm-started SQP subproblems converge in a few check blocks
+                    max_iter=min(qp_par.maximum_iteration, 300),
+                    check_every=qp_par.check_termination,
+                )
+                qp_ok = finite(x_f) & finite(y_f)
+                d = _sel(qp_ok, x_f, torch.zeros_like(x_f))
+                lam_e = _sel(qp_ok, y_f[:, :me], s.lam_e)
+                lam_i = _sel(qp_ok, y_f[:, me:me + mi], s.lam_i)
+                qp_x_new = d
+                qp_y_new = _sel(qp_ok, y_f, s.qp_y)
+            else:
+                # per-instance ADMM (ops/admm.py::admm_solve_each): each lane's
+                # subproblem with its own scaling and KKT inverse, warm-started
+                # from the previous SQP iteration's direction and duals — across
+                # iterations the QP changes slowly, so the inner ADMM typically
+                # converges in a fraction of the cold iterations.  No finiteness
+                # select, as in the JAX package.  Only the lanes still iterating
+                # are solved: each lane's solve is its own, and the loop's select
+                # discards the others' values.
+                A_qp, l_qp, u_qp = qp_rows(Je, Ji, ce, ci, s.z)
+                idx = _host.nonzero(active)
+                part = (lambda t: t) if idx.numel() == Bt else (lambda t: t[idx])
+                sol = admm.admm_solve_each(
+                    part(Bm), part(A_qp), part(g), part(l_qp), part(u_qp), params=qp_par,
+                    eq_mask=eq_mask, warm_x=part(s.qp_x), warm_y=part(s.qp_y))
+                put = lambda old, new: old.index_copy(0, idx, new)
+                d = put(torch.zeros_like(s.z), sol.x)
+                lam_e = put(s.lam_e, sol.y[:, :me])
+                lam_i = put(s.lam_i, sol.y[:, me:me + mi])
+                qp_x_new = d
+                qp_y_new = put(s.qp_y, sol.y)
 
         # -- penalty update (SLSQP rule: mu = max(|lam|, (mu+|lam|)/2));
         # after a stalled line search, drop the accumulated history and
@@ -651,31 +653,32 @@ def sqp_solve(
         # second-order correction: after a unit step, remove the remaining
         # (curvature-induced) equality residual with a least-norm correction.
         # Computed ONCE per iteration, outside the line-search loop.
-        ce_full = v_ceq(s.z + d, *args)
-        if me <= _SOC_EXACT_MAX:
-            # SPD solve through the batched Cholesky-inverse kernel
-            JJt = Je @ Je.transpose(1, 2) + 1e-10 * torch.eye(me, **kw)
-            soc_corr = batched_linalg.spd_solve(JJt, ce_full)
-        else:
-            # me past the exact solve's size: matrix-free CG on Je Je' —
-            # two (me, nz) matvecs per iteration, never forms or factors the
-            # dense me^2 system.  The SOC is a trial candidate, not the step
-            # itself, so a fixed-iteration approximate solve is sufficient;
-            # a poor candidate just loses the line search.
-            cg_mv = lambda v: _mv(Je, _vm(v, Je)) + 1e-10 * v
-            x_cg = torch.zeros_like(ce_full)
-            r = p = ce_full
-            rs = _dot(r, r)
-            for _ in range(16):
-                Ap = cg_mv(p)
-                a_cg = (rs / torch.clamp(_dot(p, Ap), min=1e-30))[:, None]
-                x_cg = x_cg + a_cg * p
-                r = r - a_cg * Ap
-                rs_new = _dot(r, r)
-                p = r + (rs_new / torch.clamp(rs, min=1e-30))[:, None] * p
-                rs = rs_new
-            soc_corr = x_cg
-        d_soc = d - _vm(soc_corr, Je)
+        with _host.span("libmpc.sqp.soc"):
+            ce_full = v_ceq(s.z + d, *args)
+            if me <= _SOC_EXACT_MAX:
+                # SPD solve through the batched Cholesky-inverse kernel
+                JJt = Je @ Je.transpose(1, 2) + 1e-10 * torch.eye(me, **kw)
+                soc_corr = batched_linalg.spd_solve(JJt, ce_full)
+            else:
+                # me past the exact solve's size: matrix-free CG on Je Je' —
+                # two (me, nz) matvecs per iteration, never forms or factors the
+                # dense me^2 system.  The SOC is a trial candidate, not the step
+                # itself, so a fixed-iteration approximate solve is sufficient;
+                # a poor candidate just loses the line search.
+                cg_mv = lambda v: _mv(Je, _vm(v, Je)) + 1e-10 * v
+                x_cg = torch.zeros_like(ce_full)
+                r = p = ce_full
+                rs = _dot(r, r)
+                for _ in range(16):
+                    Ap = cg_mv(p)
+                    a_cg = (rs / torch.clamp(_dot(p, Ap), min=1e-30))[:, None]
+                    x_cg = x_cg + a_cg * p
+                    r = r - a_cg * Ap
+                    rs_new = _dot(r, r)
+                    p = r + (rs_new / torch.clamp(rs, min=1e-30))[:, None] * p
+                    rs = rs_new
+                soc_corr = x_cg
+            d_soc = d - _vm(soc_corr, Je)
 
         # -- lazy backtracking line search ------------------------------
         # Candidates in order [alpha=1, SOC, 1/2, 1/4, ..., 2^-(K-2)]; each
@@ -683,32 +686,33 @@ def sqp_solve(
         # Armijo-passing candidate (SOC judged as a unit step).  Every lane
         # still searching is at the same trial, so one host loop with a
         # per-lane ``ls_done`` mask reproduces the per-instance loop.
-        searching = active.clone()
-        ls_done = torch.zeros_like(searching)
-        z_acc, f_acc, ce_acc, ci_acc = s.z, f, ce, ci
-        # start at phi0 so the accumulator only ever holds candidates that
-        # strictly improve on the current iterate
-        best_phi = phi0
-        for t in range(_LS_STEPS + 1):
-            alpha = 2.0 ** -max(t - 1, 0)
-            cand = s.z + d_soc if t == 1 else s.z + alpha * d
-            fc, cec, cic = merit_terms(cand)
-            phic = phi(fc, cec, cic)
-            # the strict phi0 guard matters when D = g.d - mu.viol0 > 0 (an
-            # inexact QP direction at an infeasible iterate): the Armijo
-            # threshold then sits ABOVE phi0 and would accept a
-            # merit-increasing step
-            passed = (phic <= phi0 + _ARMIJO_C1 * alpha * D) & (phic < phi0)
-            take = searching & (passed | (phic < best_phi))
-            z_acc = _sel(take, cand, z_acc)
-            f_acc = _sel(take, fc, f_acc)
-            ce_acc = _sel(take, cec, ce_acc)
-            ci_acc = _sel(take, cic, ci_acc)
-            best_phi = torch.where(searching, torch.minimum(phic, best_phi), best_phi)
-            ls_done = ls_done | (searching & passed)
-            searching = searching & ~passed
-            if t < _LS_STEPS and not _host.flag(searching.any()):
-                break
+        with _host.span("libmpc.sqp.line_search"):
+            searching = active.clone()
+            ls_done = torch.zeros_like(searching)
+            z_acc, f_acc, ce_acc, ci_acc = s.z, f, ce, ci
+            # start at phi0 so the accumulator only ever holds candidates that
+            # strictly improve on the current iterate
+            best_phi = phi0
+            for t in range(_LS_STEPS + 1):
+                alpha = 2.0 ** -max(t - 1, 0)
+                cand = s.z + d_soc if t == 1 else s.z + alpha * d
+                fc, cec, cic = merit_terms(cand)
+                phic = phi(fc, cec, cic)
+                # the strict phi0 guard matters when D = g.d - mu.viol0 > 0 (an
+                # inexact QP direction at an infeasible iterate): the Armijo
+                # threshold then sits ABOVE phi0 and would accept a
+                # merit-increasing step
+                passed = (phic <= phi0 + _ARMIJO_C1 * alpha * D) & (phic < phi0)
+                take = searching & (passed | (phic < best_phi))
+                z_acc = _sel(take, cand, z_acc)
+                f_acc = _sel(take, fc, f_acc)
+                ce_acc = _sel(take, cec, ce_acc)
+                ci_acc = _sel(take, cic, ci_acc)
+                best_phi = torch.where(searching, torch.minimum(phic, best_phi), best_phi)
+                ls_done = ls_done | (searching & passed)
+                searching = searching & ~passed
+                if t < _LS_STEPS and not _host.flag(searching.any()):
+                    break
         decreased = ls_done | (best_phi < phi0)
         z_new = _sel(decreased, z_acc, s.z)
         f_new = torch.where(decreased, f_acc, f)
@@ -773,11 +777,13 @@ def sqp_solve(
         # a lane iterates while it has no verdict and has iterations left;
         # finished lanes are frozen (their state is carried unchanged), as a
         # batched while_loop freezes the lanes whose condition is false
-        s_active = (s.status == 0) & (s.it < cap)
-        if not _host.flag(s_active.any()):
-            break
-        new = body(s, s_active)
-        s = Carry(*(_sel(s_active, n, o) for n, o in zip(new, s)))
+        with _host.span("libmpc.sqp.loop_test"):
+            s_active = (s.status == 0) & (s.it < cap)
+            if not _host.flag(s_active.any()):
+                break
+        with _host.span("libmpc.sqp.iteration"):
+            new = body(s, s_active)
+            s = Carry(*(_sel(s_active, n, o) for n, o in zip(new, s)))
 
     if return_carry:
         return s

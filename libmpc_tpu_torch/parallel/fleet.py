@@ -31,6 +31,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from ..lmpc import controller as lmpc_controller
 from ..lmpc import problem as lmpc_problem
+from ..ops import _host
 from ..types import Result, ResultStatus
 from ..utils import deadline
 from . import mesh as mesh_lib
@@ -86,8 +87,8 @@ def _local_stats(status, iters, mesh: Mesh, elapsed: float = 0.0):
     maxes = torch.stack([iters.max().to(torch.float64),
                          torch.tensor(float(elapsed), dtype=torch.float64,
                                       device=iters.device)])
-    sums = mesh_lib.all_reduce(mesh, sums, dist.ReduceOp.SUM).tolist()
-    it_max, elapsed_max = mesh_lib.all_reduce(mesh, maxes, dist.ReduceOp.MAX).tolist()
+    sums = _host.values(mesh_lib.all_reduce(mesh, sums, dist.ReduceOp.SUM))
+    it_max, elapsed_max = _host.values(mesh_lib.all_reduce(mesh, maxes, dist.ReduceOp.MAX))
     n, *counts, it_sum = sums
     stats = FleetStats(n, *counts, mean_iterations=it_sum / max(n, 1),
                        max_iterations=int(it_max))

@@ -175,7 +175,7 @@ def nlmpc_rollout(controller, plant_fn: Callable, x0, last_u, n_steps: int,
             n_rescued = 0
             if _host.flag(failed.any()):
                 # exactly the failed lanes, lowest index first
-                idx = torch.nonzero(failed)[:, 0][:rescue_k]
+                idx = _host.nonzero(failed)[:rescue_k]
                 take = lambda a: a[idx]
                 sol2, X2, U2, Y2, slack2, feas2 = c._solve_batch(
                     take(z), take(hw), take(xb), take(ub_), take(slack),
@@ -200,9 +200,9 @@ def nlmpc_rollout(controller, plant_fn: Callable, x0, last_u, n_steps: int,
                 slack_n = put(slack_n, slack2)
                 iters = put(iters, iters[idx] + sol2.iters)
                 if nlmpc_rollout.rescued is not None:
-                    n_rescued = int(good.sum())
+                    n_rescued = _host.values(good.sum())
             if nlmpc_rollout.rescued is not None:
-                nlmpc_rollout.rescued.append((int(failed.sum()), n_rescued))
+                nlmpc_rollout.rescued.append((_host.values(failed.sum()), n_rescued))
         z, slack = z_out, slack_n
         # per-lane warm flag: lets cold_restart_on_failure re-enter ONLY the
         # failed lanes from the cold initial guess next step

@@ -906,3 +906,81 @@ def test_lmpc_nan_state_lane_holds_its_command(cuda):
     assert status[3] == int(lt.ResultStatus.ERROR)
     assert torch.equal(r.cmd[3], held)
     assert (np.delete(status, 3) == 0).all()
+
+
+def _warm_controller(kind):
+    """The quadrotor LMPC at B=1024 (closed-loop settings) or the shipped
+    UGV NLMPC at B=8, float32 on the card, after one solve: (controller,
+    state, last command) of a warm step."""
+    import libmpc_tpu_torch as lt
+
+    if kind == "lmpc":
+        c = chip_smoke.quadrotor_controller(lt, torch.float32, "cuda",
+                                            chip_smoke.closed_loop_params(lt))
+        x = torch.as_tensor(0.05 * np.random.default_rng(1).normal(size=(1024, 12)),
+                            dtype=torch.float32, device="cuda")
+        u = torch.zeros((1024, 4), dtype=torch.float32, device="cuda")
+    else:
+        c, _plant, params_fn, x, _ = chip_smoke.ugv_setup(torch, lt, torch.float32, 8)
+        c.set_runtime_params(params_fn(x, 0), batched=True)
+        u = torch.zeros((8, 2), dtype=torch.float32, device="cuda")
+    r = c.optimize(x, u)
+    torch.cuda.synchronize()
+    return c, x, r.cmd
+
+
+@pytest.mark.parametrize("kind", ["lmpc", "nlmpc"])
+def test_every_synchronizing_call_of_optimize_is_in_host(cuda, kind):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")`` a warm ``optimize``
+    of each cell's controller warns only where the innermost frame of the
+    port is ``ops/_host.py``: every read the host waits for goes through
+    the one counted place."""
+    import traceback
+    import warnings
+
+    from libmpc_tpu_torch.ops import _host
+
+    c, x, u = _warm_controller(kind)
+    where = []
+
+    def hook(message, *a, **k):
+        if "called a synchronizing CUDA operation" in str(message):
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if "libmpc_tpu_torch" in f.filename.replace("\\", "/")]
+            where.append(f"{ours[-1].filename}:{ours[-1].lineno}" if ours else "outside")
+
+    reads = _host.reads
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            c.optimize(x, u)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert where, "no synchronizing call was reported"
+    assert all(w.replace("\\", "/").split(":")[0].endswith("ops/_host.py")
+               for w in where), sorted(set(where))
+    assert _host.reads - reads >= len(where)
+
+
+def test_spans_have_no_device_work(cuda):
+    """A profiled warm step of the quadrotor LMPC: the program's spans are
+    on the host timeline, and none of the card's activities that the
+    benchmark counts (``mpcbench/trace.py``) carries a ``libmpc.`` name
+    (the spans' mirrors on the device timeline are annotations, not work)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mpcbench import trace
+
+    c, x, u = _warm_controller("lmpc")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(trace.WINDOW_SPAN):
+            c.optimize(x, u)
+            torch.cuda.synchronize()
+    p = trace.read_profile(prof, 1)
+    assert p.kernels() > 0
+    assert not [n for n, _, _ in p.device if n.startswith("libmpc.")]
+    host = {n for n, _, _ in p.host}
+    assert {"libmpc.lmpc.optimize", "libmpc.admm.solve", "libmpc.admm.check"} <= host

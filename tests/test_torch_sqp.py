@@ -275,13 +275,13 @@ def test_inner_engine_routes_as_the_jax_package(nz, m_qp):
 
 
 def test_host_reads_are_counted():
-    """Every loop test of the host-driven solver goes through ``_host.flag``:
-    one read per SQP iteration plus one per line-search trial and per
+    """Every loop test of the host-driven solver goes through ``_host``: one
+    read per SQP iteration plus one per line-search trial and per
     interior-point iteration."""
     z0, x0, lb, ub = _inputs(2)
-    _host.flag.reads = 0
+    _host.reads = 0
     t = _torch_solve(z0, x0, lb, ub, NLParameters(maximum_iteration=60))
-    assert _host.flag.reads > int(t.iters.max())
+    assert _host.reads > int(t.iters.max())
 
 
 def test_second_order_correction_gate_is_the_jax_packages():
