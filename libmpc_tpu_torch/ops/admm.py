@@ -1289,9 +1289,10 @@ class _BlockGraph:
 
 
 def _use_graphs(device) -> bool:
-    """Whether :func:`_admm_loop_each` replays its blocks as CUDA graphs:
-    on the card, where a block's launches cost the host more than the
-    device's work; the CPU runs them eagerly."""
+    """Whether :func:`_admm_loop_each` replays its blocks, and the SQP loop
+    its evaluations of the NLP (``ops/sqp.py::_EvalGraph``), as CUDA graphs:
+    on the card, where their launches cost the host more than the device's
+    work; the CPU runs them eagerly."""
     return device.type == "cuda"
 
 

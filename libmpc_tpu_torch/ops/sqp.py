@@ -93,6 +93,94 @@ def _fused_size_ok(n: int, m: int) -> bool:
 
 _HESSIAN_MODES = ("gershgorin", "eigh", "power", "gauss_newton", "bfgs")
 
+# The SQP loop's evaluations of the NLP (each derivative block and each merit
+# evaluation of a trial or of the second-order correction) and those a CUDA
+# graph's replay served (:class:`_EvalGraph`), since each was last set to 0.
+# Kept on every device, as ``_host.reads``; nothing in the solver reads them.
+evals = 0
+replays = 0
+
+_capture_streams: dict = {}  # device -> the stream the evaluations capture on
+# (device, evaluation) -> the graph of that evaluation's last capture, never
+# replayed again: the next capture allocates from its memory pool, so that a
+# call's graph memory passes to the next call instead of piling up (a pool
+# whose graph has died is freed only by ``torch.cuda.empty_cache``)
+_last_capture: dict = {}
+
+
+class _EvalGraph:
+    """One of the SQP loop's evaluations of the NLP within one
+    :func:`sqp_solve` call, ``fn(*inputs)`` returning a tuple of tensors,
+    replayed as a CUDA graph where :func:`admm._use_graphs` says (the card;
+    the CPU runs it eagerly).
+
+    The evaluations of the call's first SQP iteration run eagerly: they are
+    the warm-up, and a call of one iteration captures nothing.  Once
+    :attr:`armed` (from the second iteration on), the next evaluation
+    captures ``fn`` on the graph's own copies of its inputs and replays it,
+    and every later one copies its inputs in and replays.  What ``fn`` closes
+    over (the solve's ``fn_args``) is fixed for the call and captured as it
+    is.  A replay launches the eager evaluation's kernels on the same shapes
+    and writes the same output tensors each time, so an output kept past the
+    next evaluation has to be copied first.  Where the capture raises
+    (``fn`` reads from the device or copies from the host, which a graph
+    cannot hold), the evaluation stays eager for the rest of the call.  A
+    graph is replayed only by the call that captured it: the controllers
+    build their functions anew for every solve.  ``kind`` names the
+    evaluation; each kind's captures on a device share one memory pool, and
+    two kinds never share one, since the outputs of one are read after the
+    other replays."""
+
+    def __init__(self, kind, fn, device):
+        self.kind, self.fn = kind, fn
+        self.capturable = admm._use_graphs(device)
+        self.armed = False
+        self.graph = None
+
+    def __call__(self, *inputs):
+        global evals, replays
+        evals += 1
+        if self.graph is None and self.capturable and self.armed:
+            self.capturable = self.capture(inputs)
+        if self.graph is None:
+            return self.fn(*inputs)
+        for buf, val in zip(self.inputs, inputs):
+            buf.copy_(val)
+        replays += 1
+        return self.replay()
+
+    def capture(self, inputs) -> bool:
+        """Capture ``fn`` on new tensors shaped as ``inputs`` (sets
+        :attr:`graph`, :attr:`inputs` and :attr:`outputs`); False, with
+        nothing kept, where the capture raises."""
+        dev = inputs[0].device
+        side = _capture_streams.get(dev)
+        if side is None:
+            side = _capture_streams[dev] = torch.cuda.Stream(dev)
+        self.inputs = tuple(torch.empty_like(t) for t in inputs)
+        graph = torch.cuda.CUDAGraph()
+        last = _last_capture.get((dev, self.kind))
+        side.wait_stream(torch.cuda.current_stream(dev))
+        # capture_begin/end, not torch.cuda.graph, which synchronizes and
+        # empties the allocator's cache at every capture
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(*(() if last is None else (last.pool(),)))
+                try:
+                    outputs = self.fn(*self.inputs)
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            self.inputs = None
+            return False
+        self.graph, self.outputs = graph, outputs
+        _last_capture[(dev, self.kind)] = graph
+        return True
+
+    def replay(self):
+        self.graph.replay()
+        return self.outputs
+
 
 class Carry(NamedTuple):
     """SQP loop state, batch axis leading — module-scope so resumable chunks
@@ -348,6 +436,9 @@ def sqp_solve(
         ci = v_cin(z, *args) if v_cin is not None else torch.zeros((Bt, 0), **kw)
         return v_f(z, *args), v_ceq(z, *args), ci
 
+    # the loop's merit evaluations (the trials and the second-order
+    # correction) replay on the card; the entry point's is eager
+    merit = _EvalGraph("merit", merit_terms, dev)
     f0, ce0, ci0 = merit_terms(z0) if carry_in is None else (None, None, None)
     probe = (ce0, ci0) if carry_in is None else (carry_in.lam_e, carry_in.lam_i)
     me, mi = probe[0].shape[1], probe[1].shape[1]
@@ -363,6 +454,25 @@ def sqp_solve(
             return L
 
         v_hess_L = vmap(hessian(lagrangian), in_dims=(0, 0, 0) + tuple(fn_in_dims))
+
+    def derivative_terms(z, lam_e, lam_i):
+        """(g, f, ce, Je, ci, Ji) at ``z``, and in the exact-Hessian modes the
+        Lagrangian's Hessian at (z, lam_e, lam_i), symmetrized."""
+        g, f = v_grad_f(z, *args)
+        ce = v_ceq(z, *args)
+        Je = v_jac_eq(z, *args)
+        if v_cin is not None:
+            ci = v_cin(z, *args)
+            Ji = v_jac_in(z, *args)
+        else:
+            ci = torch.zeros((Bt, 0), **kw)
+            Ji = torch.zeros((Bt, 0, nz), **kw)
+        if use_bfgs or use_gn:
+            return g, f, ce, Je, ci, Ji
+        H = v_hess_L(z, lam_e, lam_i, *args)
+        return g, f, ce, Je, ci, Ji, 0.5 * (H + H.transpose(1, 2))
+
+    derivatives = _EvalGraph("derivatives", derivative_terms, dev)
 
     f32 = dtype == torch.float32
     engine = inner_engine(params, dtype, nz, m_qp,
@@ -437,16 +547,12 @@ def sqp_solve(
                      if engine == "riccati" else None)
 
     def body(s: Carry, active) -> Carry:
+        # A replay's outputs stay valid until the next evaluation of the same
+        # kind; everything this iteration returns reaches the carry through
+        # the loop's select, a copy, so nothing of them outlives it.
         with _host.span("libmpc.sqp.derivatives"):
-            g, f = v_grad_f(s.z, *args)
-            ce = v_ceq(s.z, *args)
-            Je = v_jac_eq(s.z, *args)
-            if v_cin is not None:
-                ci = v_cin(s.z, *args)
-                Ji = v_jac_in(s.z, *args)
-            else:
-                ci = torch.zeros((Bt, 0), **kw)
-                Ji = torch.zeros((Bt, 0, nz), **kw)
+            terms = derivatives(s.z, s.lam_e, s.lam_i)
+            g, f, ce, Je, ci, Ji = terms[:6]
 
             ok_upd = None
             if use_bfgs:
@@ -484,8 +590,7 @@ def sqp_solve(
                 Bm = B_gn  # constant objective-curvature model (see above)
             else:
                 # -- convexified exact Hessian ----------------------------------
-                H = v_hess_L(s.z, s.lam_e, s.lam_i, *args)
-                H = 0.5 * (H + H.transpose(1, 2))
+                H = terms[6]
                 if params.hessian_reg == "gershgorin":
                     Bm = _gershgorin_convexify(H)
                 elif params.hessian_reg == "power":
@@ -654,7 +759,7 @@ def sqp_solve(
         # (curvature-induced) equality residual with a least-norm correction.
         # Computed ONCE per iteration, outside the line-search loop.
         with _host.span("libmpc.sqp.soc"):
-            ce_full = v_ceq(s.z + d, *args)
+            ce_full = merit(s.z + d)[1]
             if me <= _SOC_EXACT_MAX:
                 # SPD solve through the batched Cholesky-inverse kernel
                 JJt = Je @ Je.transpose(1, 2) + 1e-10 * torch.eye(me, **kw)
@@ -696,7 +801,7 @@ def sqp_solve(
             for t in range(_LS_STEPS + 1):
                 alpha = 2.0 ** -max(t - 1, 0)
                 cand = s.z + d_soc if t == 1 else s.z + alpha * d
-                fc, cec, cic = merit_terms(cand)
+                fc, cec, cic = merit(cand)
                 phic = phi(fc, cec, cic)
                 # the strict phi0 guard matters when D = g.d - mu.viol0 > 0 (an
                 # inexact QP direction at an infeasible iterate): the Armijo
@@ -784,6 +889,7 @@ def sqp_solve(
         with _host.span("libmpc.sqp.iteration"):
             new = body(s, s_active)
             s = Carry(*(_sel(s_active, n, o) for n, o in zip(new, s)))
+        derivatives.armed = merit.armed = True  # the first iteration warmed up
 
     if return_carry:
         return s

@@ -754,6 +754,97 @@ def test_admm_solve_each_graph_replays_match_eager_launches(cuda, monkeypatch):
     torch.testing.assert_close(graphed.x, eager.x, rtol=1e-9, atol=1e-9)
 
 
+def _ugv_steps(graphs, steps=2, B=256):
+    """The shipped UGV controller at batch ``B``, ``steps`` closed-loop
+    steps from the same starts, with the SQP loop's evaluations replayed as
+    CUDA graphs or (``graphs`` False) every capture refused so that they run
+    eagerly: each step's (command, status, plan), evaluations, replays."""
+    import libmpc_tpu_torch as lt
+    from libmpc_tpu_torch.ops import sqp
+
+    capture = sqp._EvalGraph.capture
+    if not graphs:
+        sqp._EvalGraph.capture = lambda self, inputs: False
+    try:
+        c, plant, params_fn, x, _ = chip_smoke.ugv_setup(torch, lt, torch.float32, B)
+        u = torch.zeros((B, 2), dtype=torch.float32, device="cuda")
+        out = []
+        for k in range(steps):
+            c.set_runtime_params(params_fn(x, k), batched=True)
+            evals, replays = sqp.evals, sqp.replays
+            r = c.optimize(x, u)
+            out.append((r.cmd, r.status, c._opt_vector, sqp.evals - evals,
+                        sqp.replays - replays))
+            x, u = plant(x, r.cmd, k), r.cmd
+    finally:
+        sqp._EvalGraph.capture = capture
+    return out
+
+
+def test_sqp_evaluation_graphs_match_eager_at_the_ugv(cuda):
+    """The UGV NLP at B = 256, float32, two closed-loop steps: the SQP
+    loop's evaluations replayed as CUDA graphs give bitwise the commands,
+    statuses and plans of the same evaluations launched eagerly, and the
+    replays serve all but the first iteration's evaluations of each solve."""
+    graphed, eager = _ugv_steps(True), _ugv_steps(False)
+    for (cg, sg, zg, eg, rg), (ce, se, ze, ee, re) in zip(graphed, eager):
+        assert torch.equal(sg, se) and torch.equal(cg, ce) and torch.equal(zg, ze)
+        assert eg == ee and re == 0 and 0.8 * eg < rg < eg
+
+
+_HOST_HALF = torch.tensor([0.5], dtype=torch.float64)  # a tensor on the host
+
+
+def test_sqp_user_function_copying_from_the_host_solves_eagerly(cuda):
+    """A constraint that copies a host tensor to the card inside it cannot
+    be captured: the solve keeps its evaluations eager, counts no replay and
+    gives the answer of the eager loop; the next solve of a capturable NLP
+    in the same process replays."""
+    from libmpc_tpu_torch.dims import NLDims
+    from libmpc_tpu_torch.nlmpc import problem as nlp
+    from libmpc_tpu_torch.ops import sqp
+    from libmpc_tpu_torch.types import NLParameters
+
+    dims = NLDims(2, 1, 2, 6, 3, 7, 0)
+    kw = dict(dtype=torch.float64, device=cuda)
+
+    def solve(host_copy):
+        fns = nlp.NLFunctions(
+            state_fn=lambda x, u, k: torch.stack(
+                [(1.0 - x[1] * x[1]) * x[0] - x[1] + u[0], x[0]]),
+            objective_fn=lambda X, Y, U, e: torch.sum(X**2) + torch.sum(U**2),
+            ineq_fn=((lambda X, Y, U, e: U[:, 0] - _HOST_HALF.to(U.device)) if host_copy
+                     else (lambda X, Y, U, e: U[:, 0] - 0.5)),
+            continuous=True, ts=0.1)
+        a = (dims, fns, torch.ones(2, **kw), torch.ones(1, **kw))
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (64, 2)), **kw)
+        z0 = torch.cat([x0.repeat(1, 6), torch.zeros((64, 4), **kw)], dim=1)
+        lb = torch.full((dims.nz,), -float("inf"), **kw)
+        ub = torch.full((dims.nz,), float("inf"), **kw)
+        lb[-1] = ub[-1] = 0.0
+        evals, replays = sqp.evals, sqp.replays
+        sol = sqp.sqp_solve(lambda z, x: nlp.objective(*a, z, x),
+                            lambda z, x: nlp.state_defects(*a, z, x),
+                            lambda z, x: nlp.user_ineq(*a, z, x),
+                            z0, lb, ub, NLParameters(maximum_iteration=60),
+                            fn_args=(x0,), fn_in_dims=(0,))
+        return sol, sqp.evals - evals, sqp.replays - replays
+
+    copied, evals, replays = solve(True)
+    assert int(copied.iters.max()) >= 3 and evals > 0 and replays == 0
+    capture = sqp._EvalGraph.capture
+    sqp._EvalGraph.capture = lambda self, inputs: False
+    try:
+        eager, _, _ = solve(True)
+    finally:
+        sqp._EvalGraph.capture = capture
+    for a, b in zip(copied, eager):
+        assert torch.equal(a, b)
+    plain, evals, replays = solve(False)
+    assert 0 < replays < evals
+    torch.testing.assert_close(plain.z, eager.z, rtol=0, atol=1e-12)
+
+
 @pytest.fixture
 def nccl_mesh(cuda, tmp_path):
     """One NCCL rank on the card (a file store under ``tmp_path``, 60 s

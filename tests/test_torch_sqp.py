@@ -17,6 +17,7 @@ from libmpc_tpu.types import NLParameters as JParams
 from libmpc_tpu_torch.dims import NLDims
 from libmpc_tpu_torch.nlmpc import problem as tnlp
 from libmpc_tpu_torch.ops import _host
+from libmpc_tpu_torch.ops import admm as tadmm
 from libmpc_tpu_torch.ops import sqp as tsqp
 from libmpc_tpu_torch.types import NLParameters
 
@@ -141,8 +142,6 @@ def test_engines_not_ported_raise(inner):
     per-instance ADMM (they raised until it was ported): every lane's inner
     solve goes through ``admm_solve_each``, each SQP iteration solving the
     lanes still iterating only."""
-    from libmpc_tpu_torch.ops import admm as tadmm
-
     par = NLParameters(inner_qp=inner, maximum_iteration=8)
     for plan_ok in (False, True):
         assert tsqp.inner_engine(par, torch.float32, 301, 842, plan_ok) == (
@@ -323,3 +322,82 @@ def test_second_order_correction_gate_is_the_jax_packages():
     np.testing.assert_allclose(tc._opt_vector.numpy(), np.asarray(jc._opt_vector),
                                rtol=0, atol=1e-9)
     np.testing.assert_allclose(rt.cmd.numpy(), np.asarray(rj.cmd), rtol=0, atol=1e-9)
+
+
+class _EagerEvalGraph(tsqp._EvalGraph):
+    """Each capture and replay of an SQP evaluation stood in for by the
+    evaluation run eagerly on the graph's own input tensors, its results
+    written into the same output tensors every time, as a replay writes
+    them."""
+
+    made: list = []
+
+    def capture(self, inputs):
+        type(self).made.append(self)
+        self.inputs = tuple(torch.empty_like(t) for t in inputs)
+        self.graph, self.outputs = "captured", None
+        return True
+
+    def replay(self):
+        out = self.fn(*self.inputs)
+        if self.outputs is None:
+            self.outputs = out
+        else:
+            for buf, val in zip(self.outputs, out):
+                buf.copy_(val)
+        return self.outputs
+
+
+class _EagerBlockGraph(tadmm._BlockGraph):
+    """The per-instance ADMM's block graph, each replay stood in for by the
+    block run eagerly on the graph's tensors."""
+
+    _cache = {}
+
+    def capture(self, params, check_every):
+        self.args = (params, check_every)
+
+    def run(self):
+        self.need_update, self.rho_est = self.advance(*self.args)
+        return self.state, self.need_update, self.rho_est
+
+
+@pytest.mark.parametrize("mode,inner", [
+    ("eigh", "admm"), ("bfgs", "pdip"), ("gauss_newton", "pdip")])
+def test_evaluation_graph_bookkeeping_gives_the_eager_loop(monkeypatch, mode, inner):
+    """The SQP loop's evaluations replayed as on the card (the first
+    iteration eager, the derivative block and the merit evaluation captured
+    once each in the second and replayed from then on), each replay stood in
+    for by the evaluation run eagerly into the same output tensors: bitwise
+    the eager loop; a one-iteration call captures nothing; ``evals`` counts
+    every evaluation and ``replays`` all but the first iteration's; and no
+    tensor of the carry (``g_prev``, ``Je_prev``, ``Ji_prev`` among them)
+    shares storage with a replay's outputs."""
+    z0, x0, lb, ub = _inputs(4, seed=3)
+    params = NLParameters(maximum_iteration=40, hessian_reg=mode, inner_qp=inner)
+    tsqp.evals = tsqp.replays = 0
+    eager = _torch_solve(z0, x0, lb, ub, params, return_carry=True)
+    eager_evals = tsqp.evals
+    assert tsqp.replays == 0 and eager_evals >= 3 * int(eager.it.max())
+
+    monkeypatch.setattr(tadmm, "_use_graphs", lambda device: True)
+    monkeypatch.setattr(tadmm, "_BlockGraph", _EagerBlockGraph)
+    monkeypatch.setattr(_EagerBlockGraph, "_cache", {})
+    monkeypatch.setattr(tsqp, "_EvalGraph", _EagerEvalGraph)
+    monkeypatch.setattr(_EagerEvalGraph, "made", [])
+    tsqp.evals = tsqp.replays = 0
+    one = _torch_solve(z0, x0, lb, ub, params, it_hi=1, return_carry=True)
+    first_evals = tsqp.evals
+    assert int(one.it.max()) == 1 and first_evals >= 2
+    assert tsqp.replays == 0 and _EagerEvalGraph.made == []
+
+    tsqp.evals = tsqp.replays = 0
+    replayed = _torch_solve(z0, x0, lb, ub, params, return_carry=True)
+    assert int(replayed.it.max()) >= 3
+    assert len(_EagerEvalGraph.made) == 2  # the derivative block, the merit
+    assert tsqp.evals == eager_evals
+    assert tsqp.replays == tsqp.evals - first_evals
+    for f in tsqp.Carry._fields:
+        assert torch.equal(getattr(replayed, f), getattr(eager, f)), f
+    kept = {t.untyped_storage().data_ptr() for g in _EagerEvalGraph.made for t in g.outputs}
+    assert not kept & {t.untyped_storage().data_ptr() for t in replayed if t.numel()}
