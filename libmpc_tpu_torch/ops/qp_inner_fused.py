@@ -57,6 +57,14 @@ layouts of the same algorithm, chosen by shape at launch (:func:`tier`):
   layout served every shape) 675 cycles per iteration per SM at full
   residency, bound by shared-memory load throughput.
 
+What a trace sees.  :func:`solve_batched` opens three spans
+(``ops/_host.py::span``, inside the SQP's ``libmpc.sqp.inner_qp``):
+``libmpc.qp_fused.scale`` (the host-side Ruiz equilibration and the scaled
+data), ``libmpc.qp_fused.iterate`` (the K3 launch on the card, the twin's loop
+on the CPU) and ``libmpc.qp_fused.unscale``.  ``solve_batched.trace``, None
+unless a reader sets it to a list, receives each solve's per-instance
+(iterations, done) tensors.
+
 :func:`supported` is the kernel's own gate: the shared memory of one warp's
 instance, in its tier's layout (:func:`smem_bytes`), must fit the 227 KB a
 block can use; past it a request raises.
@@ -271,15 +279,19 @@ def _iterate_kernel(P, A, q, l, u, rho, x, y, dinv, einv, cinv, *, sigma, alpha,
 
 def _solve(iterate, P, A, q, l, u, rho_vec, x0, y0, *, ruiz_iters, **kw):
     dtype = q.dtype
-    P, A, l, u, rho_vec, x0, y0 = (t.to(dtype) for t in (P, A, l, u, rho_vec, x0, y0))
-    Ps, As, qs, ls, us, xs, ys, d, e, c = _scale_problem(P, A, q, l, u, x0, y0, ruiz_iters)
-    dinv, einv, cinv = 1.0 / d, 1.0 / e, 1.0 / c
-    x, y, z, iters, done, pri, dua = iterate(
-        Ps, As, qs, ls, us, rho_vec, xs, ys, dinv, einv, cinv, **kw)
+    with _host.span("libmpc.qp_fused.scale"):
+        P, A, l, u, rho_vec, x0, y0 = (t.to(dtype) for t in (P, A, l, u, rho_vec, x0, y0))
+        Ps, As, qs, ls, us, xs, ys, d, e, c = _scale_problem(P, A, q, l, u, x0, y0,
+                                                             ruiz_iters)
+        dinv, einv, cinv = 1.0 / d, 1.0 / e, 1.0 / c
+    with _host.span("libmpc.qp_fused.iterate"):
+        x, y, z, iters, done, pri, dua = iterate(
+            Ps, As, qs, ls, us, rho_vec, xs, ys, dinv, einv, cinv, **kw)
     if solve_batched.trace is not None:
         solve_batched.trace.append((iters, done))
     # unscale: x = D xbar, z = E^-1 zbar, y = E ybar / c
-    return x * d, y * e * cinv[:, None], z * einv, iters, done, pri, dua
+    with _host.span("libmpc.qp_fused.unscale"):
+        return x * d, y * e * cinv[:, None], z * einv, iters, done, pri, dua
 
 
 def plain_solve_batched(P, A, q, l, u, rho_vec, x0, y0, *, sigma=1e-5, alpha=1.6,
