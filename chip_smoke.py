@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's main paths after building the five hand-written CUDA
+Drives the port's main paths after building the six hand-written CUDA
 kernels from ``libmpc_tpu_torch/csrc`` and holding each against its plain
 PyTorch twin on the card:
 
@@ -21,7 +21,7 @@ PyTorch twin on the card:
   lanes, 150 steps as five chained 30-step rollouts, float32, the shipped
   ``inner_qp="admm"``, ``hessian_reg="eigh"`` settings): the per-instance
   inner ADMM, whose KKT inverses, polish capacitances and second-order
-  corrections go through K2;
+  corrections go through K2, and the eigenvalue clipping through K6;
 * the batch-sharded fleets of ``libmpc_tpu_torch.parallel`` over
   ``torch.distributed``: ``LMPCFleet`` on the quadrotor loop (K1, K2) and
   ``NLMPCFleet`` on the Van der Pol loop (K3, K2), as one NCCL rank and as
@@ -55,7 +55,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
    ill-conditioned blocks (the six-term construction of the reference's
    test; real interior-point iterations of the oscillator path); K5 also on
    inputs whose base pointers are not 16-byte aligned; K4, K2 and K5
-   together against a dense solve; a ``K4-speed`` and a ``K5-speed`` line
+   together against a dense solve; a ``K4-speed`` and a ``K5-speed`` line;
+   K6 (the SQP's eigenvalue clipping) against the float64 twin at the UGV's
+   (256,61,61), float32 and float64, and a ``K6-speed`` line each
 7. LMPC main path, float32: the closed loop through K1 and K2, launch
    counts (K1's by batch size and tile: ``K1-launches``), status mix,
    success fraction; the unbatched float32 golden
@@ -71,8 +73,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
     lanes, success fraction at B=1024 and at B=256 and 512
 14. oscillator accuracy at matched states: float64 riccati against float64
     pdip on the card, then float32 against that
-15. UGV main path, float32: the closed loop through K2, its launches by
-    shape, SQP and inner-ADMM iteration statistics, avoid/goal/success
+15. UGV main path, float32: the closed loop through K2 and K6, K2's
+    launches by shape, K6's launches, SQP and inner-ADMM iteration statistics, avoid/goal/success
     fractions (gated: avoid 1.0, success >= 0.99) beside the float64
     oracle's and the JAX package's TPU record, host reads and K2 launches a
     step; the per-instance engine in float64 on the first SQP iteration's
@@ -2973,12 +2975,14 @@ def phase_main_ugv(torch, lt, admm, batched_linalg, host, mods):
     c, plant, params_fn, x0, geometry = ugv_setup(torch, lt, torch.float32, B_UGV)
     reset_counts(*mods)
     batched_linalg.chol_inverse.trace, admm.admm_solve_each.trace = [], []
+    batched_linalg.eig_clip.launches = 0
     host.reads = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, inputs, statuses, iters = run_ugv(torch, lt, c, plant, params_fn, x0, K_UGV)
     wall = time.perf_counter() - t0
     launches = read_counts(*mods)
+    k6_launches = batched_linalg.eig_clip.launches
     reads = host.reads
     shapes = k2_by_shape(batched_linalg.chol_inverse.trace)
     inner = admm.admm_solve_each.trace
@@ -3003,6 +3007,7 @@ def phase_main_ugv(torch, lt, admm, batched_linalg, host, mods):
           launches_chol_inverse=launches["chol_inverse"],
           k2_launches_per_step=f"{launches['chol_inverse'] / K_UGV:.1f}",
           k2_by_shape=json.dumps(shapes).replace(" ", ""),
+          launches_eig_clip=k6_launches,
           host_reads=reads, host_reads_per_step=f"{reads / K_UGV:.1f}",
           wall_s=f"{wall:.3f}", wall_ms_per_step=f"{1e3 * wall / K_UGV:.1f}",
           solves_per_s=f"{B_UGV * K_UGV / wall:.1f}")
@@ -3013,10 +3018,12 @@ def phase_main_ugv(torch, lt, admm, batched_linalg, host, mods):
           tpu_reference_record="BENCH_r05.json(the_JAX_package_on_a_TPU,float32,B=256)",
           **{f"tpu_{k}": v for k, v in UGV_TPU_RECORD.items()})
     require(launches["chol_inverse"] > 0, "UGV main path launched K2")
+    require(k6_launches > 0, "UGV main path launched K6")
     require(frac["avoid_frac"] == 1.0, f"UGV avoid fraction {frac['avoid_frac']} == 1.0")
     require(frac["success_frac"] >= 0.99, f"UGV success fraction {frac['success_frac']} >= 0.99")
     return launches, wall, dict(frac, sqp_iters_mean=float(iters.mean()),
-                                inner_iters_mean=float(inner_iters.mean()), k2_by_shape=shapes)
+                                inner_iters_mean=float(inner_iters.mean()), k2_by_shape=shapes,
+                                eig_clip_launches=k6_launches)
 
 
 def ugv_first_qps(torch, lt, admm):
@@ -3120,6 +3127,86 @@ def phase_k2_ugv(torch, batched_linalg, card):
             rows.append({"shape": f"({B},{k},{k}),{name}", "ms": ms, "plain_ms": plain,
                          "library_ms": lib, "bound_ms": bound, "bound_by": by,
                          "max_abs_err": absmax})
+    return rows
+
+
+def symmetric_batch(B, n, seed=0):
+    """B symmetric indefinite matrices (X + X') / 2, X standard normal: the
+    Jacobi sweeps they need are about the most a 61 x 61 UGV Hessian could."""
+    X = np.random.default_rng(seed).normal(size=(B, n, n))
+    return 0.5 * (X + np.transpose(X, (0, 2, 1)))
+
+
+def k6_bound_ms(B, n, sweeps, elem):
+    """K6's least time for B lanes at ``sweeps`` Jacobi sweeps a lane (the
+    mean these inputs needed): a sweep's n (n - 1) / 2 rotations each turn
+    two rows and two columns of A and two columns of V (6 n entries, 3 flops
+    an entry), 9 n^2 (n - 1) flops; U U' 2 n^3; at the peak of the type
+    (67 TFLOP/s both); the input read and the output written once."""
+    flops = B * (sweeps * 9 * n * n * (n - 1) + 2 * n ** 3)
+    t_ops = flops / (PEAK_FLOPS_F32 if elem == 4 else PEAK_FLOPS_F64)
+    t_bytes = 2 * B * n * n * elem / PEAK_BYTES
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cuda_kernels_a_call(torch, fn):
+    """Device kernels one call of ``fn`` launches, from ``torch.profiler``'s
+    CUDA rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA") and "memcpy" not in ev.key.lower()
+               and "memset" not in ev.key.lower())
+
+
+def phase_k6(torch, bl, card):
+    """K6 against the float64 twin at the UGV's (256,61,61) in both types,
+    then one ``K6-speed`` line a type: device ms (CUDA events over
+    back-to-back launches; also at 128, 256 and 512 threads a block), the
+    bound, the plain twin's ms, ``torch.linalg.eigh``'s ms and kernels a call,
+    mean and largest sweeps, the largest relative Frobenius error against
+    the float64 twin, registers and spills.  Returns the rows for the
+    result line."""
+    B, n = 256, 61
+    res = kernel_resources(_build_mod().build_info.get("log", ""), "eig_clip_kernel")
+    rows = {}
+    for dtype, tol, elem in ((torch.float32, 2e-5, 4), (torch.float64, 1e-12, 8)):
+        name = str(dtype).split(".")[-1]
+        H = torch.as_tensor(symmetric_batch(B, n, seed=1), dtype=dtype, device="cuda")
+        want = bl.eig_clip_plain(H.double())
+        bl.eig_clip.trace = []
+        launches = bl.eig_clip.launches
+        out = bl.eig_clip(H)
+        torch.cuda.synchronize()
+        (sweeps,) = bl.eig_clip.trace
+        bl.eig_clip.trace = None
+        require(bl.eig_clip.launches == launches + 1, "eig_clip launched K6 once")
+        err = float((torch.linalg.matrix_norm(out.double() - want)
+                     / torch.linalg.matrix_norm(want)).max())
+        require(err <= tol, f"K6 {name} within {tol} of the float64 twin, got {err:.3e}")
+        mean_sw, max_sw = float(sweeps.double().mean()), int(sweeps.max())
+        ms = cuda_ms(torch, lambda: bl.eig_clip(H), reps=20)
+        by_threads = {t: cuda_ms(torch, lambda: bl._eig_clip_launch(H, t), reps=20)
+                      for t in (128, 256, 512)}
+        plain = cuda_ms(torch, lambda: bl.eig_clip_plain(H), reps=5)
+        lib = cuda_ms(torch, lambda: torch.linalg.eigh(H), reps=5)
+        lib_kernels = cuda_kernels_a_call(torch, lambda: torch.linalg.eigh(H))
+        bound, by = k6_bound_ms(B, n, mean_sw, elem)
+        phase("K6-speed", card=repr(card), dtype=name, shape=f"({B},{n},{n})",
+              ms=f"{ms:.4f}", bound_ms=f"{bound:.5f}", bound_by=by,
+              roofline_pct=f"{100 * bound / ms:.2f}",
+              ms_by_threads={t: round(v, 4) for t, v in by_threads.items()},
+              plain_ms=f"{plain:.3f}", eigh_ms=f"{lib:.3f}", eigh_kernels=lib_kernels,
+              sweeps_mean=f"{mean_sw:.2f}", sweeps_max=max_sw, max_rel_err=f"{err:.3e}",
+              tol=tol, resources=res.get(name))
+        rows[name] = {"ms": ms, "bound_ms": bound, "bound_by": by, "plain_ms": plain,
+                      "library_ms": lib, "library_kernels": lib_kernels,
+                      "sweeps_mean": mean_sw, "sweeps_max": max_sw, "max_rel_err": err}
     return rows
 
 
@@ -3927,7 +4014,7 @@ def phase_surface(torch, lt, card, mods):
     return launches
 
 
-PHASES = ("k1", "k2", "k3", "k4", "k5", "lmpc", "nlmpc", "osc", "ugv", "fleet", "qp_sharded",
+PHASES = ("k1", "k2", "k3", "k4", "k5", "k6", "lmpc", "nlmpc", "osc", "ugv", "fleet", "qp_sharded",
           "surface", "times")
 
 
@@ -4020,6 +4107,8 @@ def main(argv=None) -> int:
     if "k5" in want:
         k5_err = phase_k5(torch, ts, batched_linalg)
         phase_k5_speed(torch, ts, batched_linalg, card)
+    if "k6" in want:
+        k6_rows = phase_k6(torch, batched_linalg, card)
     if "lmpc" in want:
         launches, _ = phase_main(torch, lt, mods)
         phase_matched(torch, lt)
@@ -4127,6 +4216,9 @@ def main(argv=None) -> int:
               "libmpc_tpu/ops/trajectory_sweeps.py:201", k4_err["float32"], shape=osc_shape),
         entry("traj_sweep", "libmpc_tpu_torch/csrc/traj_sweep.cu",
               "libmpc_tpu/ops/trajectory_sweeps.py:337", k5_err["float32"], shape=osc_shape),
+        dict(name="eig_clip", route="cuda", source="libmpc_tpu_torch/csrc/eig_clip.cu",
+             replaces="none (jnp.linalg.eigh at libmpc_tpu/ops/sqp.py:458)",
+             shape="(256,61,61)", launches_ugv=ugv_sum["eig_clip_launches"], **k6_rows),
     ]
     print(json.dumps({"osc_f32_cmd_err_vs_f64": {
         "mean": float(osc_err.mean()), "p99": float(np.quantile(osc_err, 0.99)),

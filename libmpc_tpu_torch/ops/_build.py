@@ -27,7 +27,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("admm_fused.cu", "chol_inverse.cu", "qp_inner.cu", "traj_factor.cu",
+SOURCES = ("admm_fused.cu", "chol_inverse.cu", "eig_clip.cu", "qp_inner.cu", "traj_factor.cu",
            "traj_sweep.cu")
 HEADERS = ("chol_warp.cuh", "chol_block.cuh")
 NVCC_FLAGS = (
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "libmpc_chol_inverse_plan": [_I] * 7 + [_P],
     # grid threads stream: a kernel that does nothing (a launch's yardstick)
     "libmpc_empty_launch": [_I, _I, _P],
+    # H out sweeps B n threads stream
+    "libmpc_eig_clip_f32": [_P] * 3 + [_I] * 3 + [_P],
+    "libmpc_eig_clip_f64": [_P] * 3 + [_I] * 3 + [_P],
     # P A q l u rho x0 y0 dinv einv cinv | xo yo zo iters done pri dua |
     # B n m | sigma alpha eps_abs eps_rel | n_blocks check_every refine warps |
     # stream

@@ -1,5 +1,5 @@
-"""Batched small dense SPD linear algebra: the hand-written CUDA inverse
-kernel and its twin.
+"""Batched small dense linear algebra: the hand-written CUDA kernels K2 (SPD
+inverse) and K6 (eigenvalue clipping), and their twins.
 
 Counterpart of ``libmpc_tpu/ops/batched_linalg.py``.  :func:`chol_inverse`
 inverts a batch of small SPD matrices (B, k, k):
@@ -50,6 +50,14 @@ per-instance ADMM of the SQP's ``"admm"`` engine (``ops/admm.py``,
 ``admm_solve_each``) calls :func:`chol_inverse` itself for its KKT inverses
 (k = nz, 61 at the UGV shape) and its polish capacitance (k = 24), and
 :func:`chol_inverse_blocked` past k = 64.
+
+:func:`eig_clip` clips the eigenvalues of a batch of symmetric matrices
+(B, n, n) to a floor, the SQP's exact-Hessian ``"eigh"`` curvature
+(``ops/sqp.py::_eigh_convexify``).  On a CUDA tensor within its shared-memory
+tier it launches K6, ``csrc/eig_clip.cu`` (one block a lane, parallel cyclic
+Jacobi, the clipped matrix rebuilt in the same block), which replaces no
+Pallas kernel: the JAX package calls ``jnp.linalg.eigh``.  Elsewhere it runs
+:func:`eig_clip_plain`, ``torch.linalg.eigh`` and the clip, as before K6.
 """
 
 from __future__ import annotations
@@ -258,24 +266,29 @@ def _stream(index) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def _call(stem, t, *args):
+    """The library's entry ``libmpc_<stem>_f32`` or ``_f64`` (by ``t``'s type)
+    called with ``args`` and the current stream of ``t``'s device; returns
+    its CUDA error code."""
+    fn = _fns.get((stem, t.dtype))
+    if fn is None:
+        name = f"libmpc_{stem}_{'f32' if t.dtype == torch.float32 else 'f64'}"
+        fn = _fns.setdefault((stem, t.dtype), getattr(_build.library(), name))
+    index = t.device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, _stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _stream(index))
+
+
 def _launch(lay, C):
     """One launch on the current stream, counted in ``chol_inverse.launches``."""
     B, k, _ = C.shape
     out = torch.empty_like(C)
     if B == 0:
         return out
-    fn = _fns.get(C.dtype)
-    if fn is None:
-        lib = _build.library()
-        fn = _fns.setdefault(C.dtype, lib.libmpc_chol_inverse_f32 if C.dtype == torch.float32
-                             else lib.libmpc_chol_inverse_f64)
-    index = C.device.index
-    args = (C.data_ptr(), out.data_ptr(), B, k, lay.tier, lay.g, lay.threads, lay.stage)
-    if index == torch.cuda.current_device():
-        code = fn(*args, _stream(index))
-    else:
-        with torch.cuda.device(index):
-            code = fn(*args, _stream(index))
+    code = _call("chol_inverse", C, C.data_ptr(), out.data_ptr(), B, k, lay.tier, lay.g,
+                 lay.threads, lay.stage)
     if code != 0:
         _build.check(code, f"chol_inverse kernel launch with {lay}")
     chol_inverse.launches += 1
@@ -340,3 +353,73 @@ def spd_solve(M, rhs):
         L = _host.cholesky(M)
         return torch.cholesky_solve(rhs[:, None], L)[:, 0]
     return torch.einsum("bij,bj->bi", _batched_inverse(M), rhs.to(M.dtype)).to(rhs.dtype)
+
+
+# -- eigenvalue clipping: K6 ---------------------------------------------------
+
+EIG_SMEM_LIMIT = 232448  # the dynamic shared memory a block can use
+
+
+def eig_clip_smem_bytes(n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K6 block at size n (``smem_bytes`` of
+    ``csrc/eig_clip.cu``): A and V padded to an even n_p with rows of
+    n_p + 1, four arrays of n_p / 2 rotation values, 32 reduction slots and
+    two arrays of n_p / 2 pair indices (4 bytes each)."""
+    n_p = n + (n & 1)
+    half = n_p // 2
+    return (2 * n_p * (n_p + 1) + 4 * half + 32) * _elem(dtype) + 2 * half * 4
+
+
+def eig_clip_supported(n: int, dtype: torch.dtype) -> bool:
+    """Whether K6 takes (B, n, n) of ``dtype``: float32 or float64, and the
+    lane's block within shared memory (n <= 168 in float32, n <= 118 in
+    float64)."""
+    return (dtype in REG_WORDS and n >= 1
+            and eig_clip_smem_bytes(n, dtype) <= EIG_SMEM_LIMIT)
+
+
+def eig_clip_plain(H):
+    """The clipped convex model of a batch of symmetric matrices H (B, n, n):
+    V diag(max(w, tau)) V' with tau = max(1e-8, 1e-6 max|w|) per lane, through
+    ``torch.linalg.eigh`` (``_host.eigh``, which reads its status back): K6's
+    twin, and the route past its shared-memory tier."""
+    w, V = _host.eigh(H)
+    tau = torch.clamp(1e-6 * torch.amax(torch.abs(w), dim=-1), min=1e-8)
+    return (V * torch.maximum(w, tau[:, None])[:, None, :]) @ V.transpose(1, 2)
+
+
+def eig_clip(H):
+    """The clipped convex model of a batch of symmetric matrices H (B, n, n)
+    (:func:`eig_clip_plain`'s function).
+
+    A CUDA tensor whose n the kernel takes (:func:`eig_clip_supported`)
+    launches K6 (``csrc/eig_clip.cu``) on the current stream, one block a
+    lane, and reads nothing back; the launch is counted in
+    ``eig_clip.launches`` and, where ``eig_clip.trace`` is a list, each lane's
+    Jacobi sweeps (a (B,) int32 tensor on the card) are appended to it.  A
+    lane with a non-finite entry comes back as NaN.  Every other tensor runs
+    the twin.
+    """
+    if (H.device.type != "cuda" or H.dim() != 3 or H.shape[1] != H.shape[2]
+            or not eig_clip_supported(H.shape[-1], H.dtype)):
+        return eig_clip_plain(H)
+    return _eig_clip_launch(H.contiguous())
+
+
+def _eig_clip_launch(H, threads: int = 0):
+    """One K6 launch on the current stream (``threads`` a block, 0 for the
+    kernel's own choice); returns the output."""
+    B, n, _ = H.shape
+    out = torch.empty_like(H)
+    sweeps = torch.empty((B,), dtype=torch.int32, device=H.device)
+    code = _call("eig_clip", H, H.data_ptr(), out.data_ptr(), sweeps.data_ptr(), B, n, threads)
+    if code != 0:
+        _build.check(code, f"eig_clip kernel launch at B={B}, n={n}, threads={threads}")
+    eig_clip.launches += 1
+    if eig_clip.trace is not None:
+        eig_clip.trace.append(sweeps)
+    return out
+
+
+eig_clip.launches = 0
+eig_clip.trace = None

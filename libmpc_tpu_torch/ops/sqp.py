@@ -271,10 +271,9 @@ def _power_convexify(H):
 
 def _eigh_convexify(H):
     """Clip eigenvalues to a 1e-6-relative floor: the tightest convex model
-    of H (costs an eigendecomposition per iteration)."""
-    w, V = _host.eigh(H)
-    tau = torch.clamp(1e-6 * _amax_abs(w), min=1e-8)
-    return (V * torch.maximum(w, tau[:, None])[:, None, :]) @ V.transpose(1, 2)
+    of H (an eigendecomposition per iteration: one K6 launch on the card,
+    ``torch.linalg.eigh`` on the CPU; ``batched_linalg.eig_clip``)."""
+    return batched_linalg.eig_clip(H)
 
 
 def _qp_params(f32: bool = False) -> LParameters:
@@ -591,12 +590,13 @@ def sqp_solve(
             else:
                 # -- convexified exact Hessian ----------------------------------
                 H = terms[6]
-                if params.hessian_reg == "gershgorin":
-                    Bm = _gershgorin_convexify(H)
-                elif params.hessian_reg == "power":
-                    Bm = _power_convexify(H)
-                else:
-                    Bm = _eigh_convexify(H)
+                with _host.span("libmpc.sqp.convexify"):
+                    if params.hessian_reg == "gershgorin":
+                        Bm = _gershgorin_convexify(H)
+                    elif params.hessian_reg == "power":
+                        Bm = _power_convexify(H)
+                    else:
+                        Bm = _eigh_convexify(H)
 
         # -- QP subproblem:  min 1/2 d'Bd + g'd
         #    s.t. Je d = -ce ; Ji d <= -ci ; lb-z <= d <= ub-z ---------------

@@ -16,7 +16,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the repository root's smoke script; imports no JAX)
-from libmpc_tpu_torch.ops import admm_fused, batched_linalg, qp_inner_fused
+from libmpc_tpu_torch.ops import _host, admm_fused, batched_linalg, qp_inner_fused
 from libmpc_tpu_torch.ops import trajectory_sweeps as tsw
 
 pytestmark = pytest.mark.cuda
@@ -843,6 +843,188 @@ def test_sqp_user_function_copying_from_the_host_solves_eagerly(cuda):
     plain, evals, replays = solve(False)
     assert 0 < replays < evals
     torch.testing.assert_close(plain.z, eager.z, rtol=0, atol=1e-12)
+
+
+# -- K6: the SQP's eigenvalue clipping ----------------------------------------
+
+_K6_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+_K6_LARGEST = {torch.float32: 168, torch.float64: 118}
+
+
+def _k6_error(got, H):
+    """Largest relative Frobenius distance of K6's lanes from the float64
+    twin's."""
+    want = batched_linalg.eig_clip_plain(H.double())
+    return float((torch.linalg.matrix_norm(got.double() - want)
+                  / torch.linalg.matrix_norm(want)).max())
+
+
+def _k6(H, monkeypatch):
+    """K6 on H, with ``torch.linalg.eigh`` made to raise; checks one launch,
+    no host read and an exactly symmetric result."""
+    monkeypatch.setattr(torch.linalg, "eigh",
+                        lambda *a, **k: pytest.fail("torch.linalg.eigh ran"))
+    launches, reads = batched_linalg.eig_clip.launches, _host.reads
+    out = batched_linalg.eig_clip(H)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert batched_linalg.eig_clip.launches == launches + 1
+    assert _host.reads == reads
+    torch.testing.assert_close(out, out.transpose(1, 2), rtol=0, atol=0, equal_nan=True)
+    return out
+
+
+def _spectrum(B, n, w, dtype, device, seed=0):
+    """Q diag(w) Q' for a random orthogonal Q a lane."""
+    Q = np.linalg.qr(np.random.default_rng(seed).normal(size=(B, n, n)))[0]
+    return torch.as_tensor((Q * np.asarray(w)[..., None, :]) @ Q.transpose(0, 2, 1),
+                           dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eig_clip_kernel_matches_float64_twin_at_the_ugv_shape(cuda, dtype, monkeypatch):
+    H = torch.as_tensor(chip_smoke.symmetric_batch(256, 61, seed=1), dtype=dtype, device=cuda)
+    batched_linalg.eig_clip.trace = []
+    try:
+        out = _k6(H, monkeypatch)
+        (sweeps,) = batched_linalg.eig_clip.trace
+    finally:
+        batched_linalg.eig_clip.trace = None
+    assert _k6_error(out, H) <= _K6_TOL[dtype]
+    assert sweeps.device == H.device and sweeps.shape == (256,)
+    assert 1 <= int(sweeps.min()) and int(sweeps.max()) <= (20 if dtype == torch.float32 else 30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 5, 24, 33, 61, 64, "largest"])
+def test_eig_clip_every_size(cuda, dtype, n, monkeypatch):
+    """Every size to the tier's largest; the rounding of a sweep's rotations
+    adds up over about n of them an entry, so past the UGV's 61 the bound
+    grows with n."""
+    n = _K6_LARGEST[dtype] if n == "largest" else n
+    H = torch.as_tensor(chip_smoke.symmetric_batch(5 if n > 100 else 37, n, seed=n),
+                        dtype=dtype, device=cuda)
+    assert _k6_error(_k6(H, monkeypatch), H) <= _K6_TOL[dtype] * max(1.0, n / 61)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eig_clip_repeated_eigenvalues(cuda, dtype, monkeypatch):
+    """Clusters of 20 equal eigenvalues, one of them negative (clipped): the
+    clipped matrix is unique though V is not."""
+    w = np.repeat([3.0, -1.0, 1e-3], [20, 20, 21])
+    H = _spectrum(16, 61, w, dtype, cuda)
+    assert _k6_error(_k6(H, monkeypatch), H) <= _K6_TOL[dtype]
+    H = _spectrum(16, 61, np.ones(61), dtype, cuda, seed=2)  # a multiple of I
+    assert _k6_error(_k6(H, monkeypatch), H) <= _K6_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eig_clip_returns_a_positive_definite_input(cuda, dtype, monkeypatch):
+    w = np.random.default_rng(3).uniform(0.1, 10.0, size=(32, 61))
+    H = _spectrum(32, 61, w, dtype, cuda, seed=3)
+    out = _k6(H, monkeypatch)
+    rel = torch.linalg.matrix_norm(out.double() - H.double()) / torch.linalg.matrix_norm(H.double())
+    assert float(rel.max()) <= _K6_TOL[dtype]
+    D = torch.diag_embed(torch.linspace(1.0, 2.0, 61, dtype=dtype, device=cuda)).expand(4, 61, 61)
+    assert _k6_error(_k6(D.contiguous(), monkeypatch), D) <= _K6_TOL[dtype]  # no sweep
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scale", [1e-6, 1e-3, 1e3, 1e6])
+def test_eig_clip_scales(cuda, dtype, scale, monkeypatch):
+    H = torch.as_tensor(scale * chip_smoke.symmetric_batch(64, 61, seed=4), dtype=dtype,
+                        device=cuda)
+    assert _k6_error(_k6(H, monkeypatch), H) <= _K6_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eig_clip_nan_lane_stays_apart(cuda, dtype, monkeypatch):
+    H = torch.as_tensor(chip_smoke.symmetric_batch(37, 61, seed=5), dtype=dtype, device=cuda)
+    clean = _k6(H, monkeypatch)
+    H[3, 7, 11] = float("nan")
+    H[9, 0, 0] = float("inf")
+    batched_linalg.eig_clip.trace = []
+    try:
+        out = _k6(H, monkeypatch)
+        (sweeps,) = batched_linalg.eig_clip.trace
+    finally:
+        batched_linalg.eig_clip.trace = None
+    bad = torch.zeros(37, dtype=torch.bool, device=cuda)
+    bad[[3, 9]] = True
+    assert bool(torch.isnan(out[bad]).all()) and bool((sweeps[bad] == 0).all())
+    assert torch.equal(out[~bad], clean[~bad])
+
+
+def test_eig_clip_past_its_tier_runs_the_library_route(cuda):
+    for dtype, largest in _K6_LARGEST.items():
+        H = torch.as_tensor(chip_smoke.symmetric_batch(2, largest + 1, seed=6), dtype=dtype,
+                            device=cuda)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            batched_linalg._eig_clip_launch(H)  # the launcher refuses the size
+        launches = batched_linalg.eig_clip.launches
+        out = batched_linalg.eig_clip(H)
+        assert batched_linalg.eig_clip.launches == launches
+        assert torch.equal(out, batched_linalg.eig_clip_plain(H))
+
+
+def _vdp_eigh_solve(dtype, device):
+    """An ``hessian_reg="eigh"`` SQP solve of a Van der Pol NLP, 64 lanes."""
+    from libmpc_tpu_torch.dims import NLDims
+    from libmpc_tpu_torch.nlmpc import problem as nlp
+    from libmpc_tpu_torch.ops import sqp
+    from libmpc_tpu_torch.types import NLParameters
+
+    dims = NLDims(2, 1, 2, 6, 3, 7, 0)
+    kw = dict(dtype=dtype, device=device)
+    fns = nlp.NLFunctions(
+        state_fn=lambda x, u, k: torch.stack([(1.0 - x[1] * x[1]) * x[0] - x[1] + u[0], x[0]]),
+        objective_fn=lambda X, Y, U, e: torch.sum(X**2) + torch.sum(U**2),
+        ineq_fn=lambda X, Y, U, e: U[:, 0] - 0.5, continuous=True, ts=0.1)
+    a = (dims, fns, torch.ones(2, **kw), torch.ones(1, **kw))
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (64, 2)), **kw)
+    z0 = torch.cat([x0.repeat(1, 6), torch.zeros((64, 4), **kw)], dim=1)
+    lb = torch.full((dims.nz,), -float("inf"), **kw)
+    ub = torch.full((dims.nz,), float("inf"), **kw)
+    lb[-1] = ub[-1] = 0.0
+    return sqp.sqp_solve(lambda z, x: nlp.objective(*a, z, x),
+                         lambda z, x: nlp.state_defects(*a, z, x),
+                         lambda z, x: nlp.user_ineq(*a, z, x), z0, lb, ub,
+                         NLParameters(maximum_iteration=60, hessian_reg="eigh"),
+                         fn_args=(x0,), fn_in_dims=(0,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sqp_eigh_solve_convexifies_by_one_k6_launch_an_iteration(cuda, dtype, monkeypatch):
+    """An ``hessian_reg="eigh"`` SQP solve on the card launches K6 once a
+    lockstep iteration, never runs ``torch.linalg.eigh`` and reads nothing
+    back for it; with the library route forced, each convexification reads
+    its status once."""
+    from libmpc_tpu_torch.ops import sqp
+
+    calls = []
+    convexify = sqp._eigh_convexify
+
+    def counted(H):
+        reads = _host.reads
+        out = convexify(H)
+        calls.append(_host.reads - reads)
+        return out
+
+    monkeypatch.setattr(sqp, "_eigh_convexify", counted)
+    monkeypatch.setattr(torch.linalg, "eigh",
+                        lambda *a, **k: pytest.fail("torch.linalg.eigh ran"))
+    launches = batched_linalg.eig_clip.launches
+    sol = _vdp_eigh_solve(dtype, cuda)
+    iters = int(sol.iters.max())
+    assert iters >= 3 and bool(torch.isfinite(sol.z).all())
+    assert batched_linalg.eig_clip.launches - launches == iters == len(calls)
+    assert set(calls) == {0}
+    monkeypatch.undo()
+    monkeypatch.setattr(sqp, "_eigh_convexify", counted)
+    monkeypatch.setattr(batched_linalg, "eig_clip_supported", lambda n, dtype: False)
+    calls.clear()
+    plain = _vdp_eigh_solve(dtype, cuda)
+    assert len(calls) == int(plain.iters.max()) and set(calls) == {1}
 
 
 @pytest.fixture

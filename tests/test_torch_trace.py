@@ -121,7 +121,8 @@ def test_sqp_spans_nest_as_the_layers(ugv_profiled):
     spans, _ = ugv_profiled
     assert set(spans) >= {
         "libmpc.nlmpc.optimize", "libmpc.sqp.loop_test", "libmpc.sqp.iteration",
-        "libmpc.sqp.derivatives", "libmpc.sqp.inner_qp", "libmpc.admm_each.block",
+        "libmpc.sqp.derivatives", "libmpc.sqp.convexify", "libmpc.sqp.inner_qp",
+        "libmpc.admm_each.block",
         "libmpc.admm_each.compact", "libmpc.sqp.soc", "libmpc.sqp.line_search",
         "libmpc.nlmpc.result"}
     assert not {n for n in spans if n.startswith(("libmpc.admm.", "libmpc.lmpc."))} - {
@@ -133,6 +134,9 @@ def test_sqp_spans_nest_as_the_layers(ugv_profiled):
     assert _inside(iterations, spans["libmpc.nlmpc.optimize"])
     for name in ("derivatives", "soc", "line_search"):
         assert _inside(spans[f"libmpc.sqp.{name}"], iterations), name
+    # the UGV's "eigh" curvature: one convexification in each derivative block
+    assert len(spans["libmpc.sqp.convexify"]) == len(spans["libmpc.sqp.derivatives"])
+    assert _inside(spans["libmpc.sqp.convexify"], spans["libmpc.sqp.derivatives"])
     for name in ("refactor", "compact"):
         assert _inside(spans.get(f"libmpc.admm_each.{name}", []),
                        spans["libmpc.sqp.inner_qp"]), name
