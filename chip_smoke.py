@@ -46,7 +46,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
    oscillators' border shape (1024,8,8); its blocked recursion at
    (256,302,302) and (256,240,240); every k from 1 to 64 at the layout's
    choice and, for k <= 32, with the block tier forced (``K2-every-k``);
-   ``K2-speed`` lines
+   ``K2-speed`` lines, the UGV path's shapes among them
 5. K3 (whole inner-QP solve) against its twin, float64 and float32, ragged
    batch included; a ``K3-speed`` line
 6. K4 (banded factorization) and K5 (banded solve) against their twins,
@@ -79,8 +79,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
     oracle's and the JAX package's TPU record, host reads and K2 launches a
     step; the per-instance engine in float64 on the first SQP iteration's
     QPs, K2 against its twin substituted (statuses and iterations equal, x
-    within 1e-9); K2 against its twin and timed at (256,61,61), (256,40,40),
-    (256,24,24) in both types
+    within 1e-9); K2 against its twin at (256,61,61), (256,40,40),
+    (256,24,24) in both types (timed on their ``K2-speed`` lines)
 16. fleet: one NCCL rank on the card runs the quadrotor ``LMPCFleet``
     (B=16384 x 16 steps) and the Van der Pol ``NLMPCFleet`` (B=4096 x 4
     steps), float32, each beside the plain controller on the same inputs
@@ -118,12 +118,19 @@ Phases, one line each (any failure raises and the script exits non-zero):
     oracle, whose command is within 1e-4 of the golden.  Wall seconds, steps,
     statuses and kernel launches of each part (a ``surface`` JSON line); the
     path must launch all five kernels
-19. times: kernels, twins and library calls with CUDA events, each kernel's
-    bound, steady-state and closed-loop solves/s of the three paths
 
-``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 lmpc nlmpc osc
-ugv fleet qp_sharded surface times; ``--phases k1`` is K1's one-minute
-check: its twin comparisons and a ``K1-speed`` line with its time at the main path's batches in both types,
+Each kernel's speed line (``K1-speed`` ... ``K6-speed``) is the one place
+that times it: the kernel, its plain twin, the library call for the same
+function where there is one, and the bound.  The closed loops that a cell
+of ``BENCHMARK.json`` measures (the quadrotor, Van der Pol and UGV loops)
+are timed by ``python3 -m mpcbench.run`` alone; the lines here time only
+the loops no cell covers (the oscillators, the fleets, the row-sharded QP,
+the user surface).
+
+``--phases a,b,...`` runs a subset (names: k1 k2 k3 k4 k5 k6 lmpc nlmpc
+osc ugv fleet qp_sharded surface; ``--phases k1`` is K1's one-minute
+check: its twin comparisons and a ``K1-speed`` line with its time at the
+main path's batches in both types, the twin's time,
 each tier forced, the bound, the layout, the L2 bytes a launch and their
 rate, registers and spills (``--sweep-k1`` adds a ``K1-sweep`` line: the
 probe's L2 read rate, tiers at more batches, tiles and ring depths);
@@ -135,16 +142,14 @@ K5's, with a ``K5-speed`` line; ``--phases k2`` is K2's, with a
 ``K2-speed`` line for each of ``K2_SPEED_SHAPES`` in both types: device time
 from CUDA graphs of launches and an empty kernel's on K2's grid (medians of
 seven interleaved repetitions, and the range of their difference), host us
-a call, the bound, ``torch.linalg.inv``'s time, the time before the
-redesign (``--k2-before DIR`` times another checkout's K2 in the same run),
-the layout, registers and spills (``--sweep-k2`` adds a ``K2-sweep`` line:
-every other layout the library has, forced); ``--k2-ablate`` times K2's
-register tier without its passes or its stores),
-``--profile`` adds a ``torch.profiler`` breakdown of the loops whose
-phases run (``lmpc``: the quadrotor; ``nlmpc``: Van der Pol; ``osc``: the
-oscillators, and the oscillator rollout's idle share from one traced
-window; ``ugv``: kernel launches a step and the idle share of a two-step
-UGV window), ``--k1-clocks`` counts the cycles of each phase of a staged K1
+a call, the bound, the twin's and ``torch.linalg.inv``'s time, the time
+before the redesign, the layout, registers and spills (``--sweep-k2`` adds
+a ``K2-sweep`` line: every other layout the library has, forced);
+``--k2-ablate`` times K2's register tier without its passes or its stores),
+``--profile`` with ``osc`` adds a ``torch.profiler`` breakdown of the
+oscillator loop and the oscillator rollout's idle share from one traced
+window (no cell traces that loop; ``python3 -m mpcbench.run --trace 1``
+breaks down the cells' loops), ``--k1-clocks`` counts the cycles of each phase of a staged K1
 block, ``--sweep-k3`` times K3 for several warps per block, ``--k3-clocks`` counts
 the cycles of each phase of K3's register tier and ``--k4-clocks`` those of
 each barrier phase of K4; with no arguments every
@@ -308,14 +313,6 @@ def closed_loop_params(lt):
     )
 
 
-def steady_state_params(lt):
-    """Warm-started steady-state re-solve settings (bench.py:82-84)."""
-    return lt.LParameters(
-        maximum_iteration=100, enable_warm_start=True, polish=True,
-        polish_mode="shared", rho=0.01, cold_rho=0.1, check_termination=10,
-    )
-
-
 def closed_loop_inputs(B, K, nx=12):
     """Initial states and per-step process noise (bench.py:268-276)."""
     rng = np.random.default_rng(7)
@@ -444,28 +441,6 @@ def host_us(torch, fn, n=200):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return 1e6 * (t1 - t0) / n
-
-
-def load_other(root, module):
-    """``libmpc_tpu_torch/ops/<module>.py`` of another checkout at ``root``
-    as a module of another package (``other_<module>.ops``), so that its
-    ``_build.py`` builds that checkout's kernel library into that
-    checkout's ``_build`` directory; nothing else of it is imported."""
-    import importlib.util
-    import types
-
-    pkg = Path(root).resolve() / "libmpc_tpu_torch"
-    top = f"other_{module}"
-    for name, path in ((top, pkg), (f"{top}.ops", pkg / "ops")):
-        mod = types.ModuleType(name)
-        mod.__path__ = [str(path)]
-        sys.modules[name] = mod
-    spec = importlib.util.spec_from_file_location(f"{top}.ops.{module}",
-                                                  pkg / "ops" / f"{module}.py")
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 # -- phases -------------------------------------------------------------------
@@ -629,15 +604,17 @@ K1_MS_BEFORE = {"float32_B16384": 6.5703, "float64_B16384": 11.9478,
 def phase_k1_speed(torch, admm_fused, card, sweep=False):
     """K1's time at the quadrotor shape (n=216, m=535, 10 iterations, CUDA
     events), float32 with refinement and float64 without, at the main path's
-    batches (16384, the compacted 1024, and 1, the goldens); the bound and
-    what sets it; the time before the staged tier; the layout; float32 at
+    batches (16384, the compacted 1024, and 1, the goldens); the plain
+    twin's time at B=16384 float32; the bound and what sets it; the time
+    before the staged tier; the layout; float32 at
     each batch also with each tier forced (the staged tier at the tile its
     cost model picks); registers and spills of each kernel from ``-Xptxas
     -v``; the L2 bytes a launch reckoned from the layout and the rate they
     were read at; one 8-lane staged tile alone (its us per iteration from
     10 and 20 iterations).  ``sweep`` (``--sweep-k1``) adds a ``K1-sweep``
     line: the probe's L2 read rate, both tiers at B=2048 and 4096, every
-    staged tile at B=16384 and 1024, and each ring depth at 1024."""
+    staged tile at B=16384 and 1024, and each ring depth at 1024.  Returns
+    the kernels line's numbers."""
     f32, f64 = torch.float32, torch.float64
     data = {B: k1_problem(B, N_QP, M_QP, seed=0 if B == B_MAIN else 1) for B in (B_MAIN, 1024)}
 
@@ -663,6 +640,9 @@ def phase_k1_speed(torch, admm_fused, card, sweep=False):
 
     cases = ((B_MAIN, f32), (B_MAIN, f64), (1024, f32), (1024, f64), (1, f32), (1, f64))
     ms = {c: time(*c) for c in cases}
+    a = args_of(B_MAIN, f32)
+    plain = cuda_ms(torch, lambda: admm_fused.plain_iterations(
+        *a, sigma=1e-5, alpha=1.6, k_iters=10, refine=True))
     bound, by = k1_bound_ms(B_MAIN, N_QP, M_QP, 10)
     lays = {c: admm_fused.layout(c[0], N_QP, M_QP, c[1]) for c in cases}
     l2 = {c: k1_l2_bytes(lays[c], N_QP, M_QP, 10, c[1] == f32, 4 if c[1] == f32 else 8)
@@ -680,6 +660,7 @@ def phase_k1_speed(torch, admm_fused, card, sweep=False):
     name = lambda c: f"{str(c[1]).split('.')[-1]}_B{c[0]}"
     phase("K1-speed", card=repr(card), shape=f"n={N_QP},m={M_QP},k_iters=10",
           **{f"ms_{name(c)}": f"{ms[c]:.4f}" for c in cases},
+          plain_ms_float32_B16384=f"{plain:.4f}",
           ms_before_float32_B16384=K1_MS_BEFORE["float32_B16384"],
           ms_before_float64_B16384=K1_MS_BEFORE["float64_B16384"],
           ms_before_float32_B1024=K1_MS_BEFORE["float32_B1024"],
@@ -713,7 +694,8 @@ def phase_k1_speed(torch, admm_fused, card, sweep=False):
                                                        for k, v in by_tile.items()),
               ms_float32_B1024_bt8_by_stages="/".join(f"{k}:{v:.4f}"
                                                       for k, v in by_stages.items()))
-    return {name(c): ms[c] for c in cases}
+    return dict(ms=ms[(B_MAIN, f32)], plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, ms_float64=ms[(B_MAIN, f64)], ms_B1024=ms[(1024, f32)])
 
 
 def phase_k2(torch, batched_linalg):
@@ -907,71 +889,6 @@ def k2_bound_ms(B, k, elem=4):
     t_bytes = (lower_triangle_bytes(B, k, elem) + B * k * k * elem) / PEAK_BYTES
     t_ops = B * k ** 3 / (PEAK_FLOPS_F32 if elem == 4 else PEAK_FLOPS_F64)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def phase_times(torch, lt, admm_fused, batched_linalg, card):
-    dev = "cuda"
-    f32 = torch.float32
-    data = k1_problem(B_MAIN, N_QP, M_QP)
-    t = {k: torch.as_tensor(v, dtype=f32, device=dev)
-         for k, v in data.items() if k != "sigma"}
-    zeros = lambda w: torch.zeros((B_MAIN, w), dtype=f32, device=dev)
-    done = torch.zeros(B_MAIN, dtype=torch.bool, device=dev)
-    args = (zeros(N_QP), zeros(M_QP), zeros(M_QP), done, t["q"], t["l"], t["u"],
-            t["A"], t["M"], t["Minv"], t["rho"])
-    kw = dict(sigma=data["sigma"], alpha=1.6, k_iters=10, refine=True)
-    k1_ms = cuda_ms(torch, lambda: admm_fused.fused_iterations(*args, **kw))
-    k1_plain = cuda_ms(torch, lambda: admm_fused.plain_iterations(*args, **kw))
-    C = torch.as_tensor(spd_batch(B_MAIN, 24), dtype=f32, device=dev)
-    k2_ms = cuda_ms(torch, lambda: batched_linalg.chol_inverse(C), reps=20)
-    k2_plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(C), reps=20)
-    k2_lib = cuda_ms(torch, lambda: torch.linalg.inv(C), reps=20)
-    k1_bound, k1_by = k1_bound_ms(B_MAIN, N_QP, M_QP, 10)
-    k2_bound, k2_by = k2_bound_ms(B_MAIN, 24)
-    phase("times-kernels", card=repr(card),
-          K1_ms=f"{k1_ms:.4f}", K1_plain_ms=f"{k1_plain:.4f}",
-          K1_bound_ms=f"{k1_bound:.4f}", K1_bound_by=k1_by,
-          K1_shape=f"B={B_MAIN},n={N_QP},m={M_QP},k_iters=10,float32,refine",
-          K2_ms=f"{k2_ms:.4f}", K2_plain_ms=f"{k2_plain:.4f}",
-          K2_library_ms=f"{k2_lib:.4f}", K2_bound_ms=f"{k2_bound:.5f}", K2_bound_by=k2_by,
-          K2_shape=f"({B_MAIN},24,24),float32")
-
-    # steady state: warm-started re-solves of one batch (bench.py:183-229)
-    rng = np.random.default_rng(0)
-    x0 = torch.as_tensor(0.05 * rng.normal(size=(B_MAIN, 12)), dtype=f32, device=dev)
-    c = quadrotor_controller(lt, f32, dev, steady_state_params(lt))
-    r = c.optimize(x0, torch.zeros((B_MAIN, 4), dtype=f32, device=dev))
-    r = c.optimize(x0, r.cmd)
-    torch.cuda.synchronize()
-    reps = 12
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        r = c.optimize(x0, r.cmd)
-    torch.cuda.synchronize()
-    ss = time.perf_counter() - t0
-    ss_iters = c._last_iters.float().mean().item()
-
-    # closed loop: 16 steps from a cold start, timed end to end
-    Ad, Bd = quadrotor_model()
-    x0_h, noise_h = closed_loop_inputs(B_MAIN, K_MAIN)
-    cc = quadrotor_controller(lt, f32, dev, closed_loop_params(lt))
-    xs = torch.as_tensor(x0_h, dtype=f32, device=dev)
-    nz = torch.as_tensor(noise_h, dtype=f32, device=dev)
-    Ad_t = torch.as_tensor(Ad, dtype=f32, device=dev)
-    Bd_t = torch.as_tensor(Bd, dtype=f32, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_closed_loop(torch, cc, xs, nz, Ad_t, Bd_t)
-    torch.cuda.synchronize()
-    cl = time.perf_counter() - t0
-    phase("times-e2e", card=repr(card), B=B_MAIN,
-          steady_steps_per_s=f"{reps / ss:.3f}",
-          steady_solves_per_s=f"{B_MAIN * reps / ss:.1f}",
-          steady_step_ms=f"{1e3 * ss / reps:.2f}", steady_iters_mean=f"{ss_iters:.2f}",
-          closed_loop_steps=K_MAIN, closed_loop_s=f"{cl:.3f}",
-          closed_loop_solves_per_s=f"{B_MAIN * K_MAIN / cl:.1f}")
-    return {"admm_fused": (k1_ms, k1_plain, k1_bound, k1_by, None),
-            "chol_inverse": (k2_ms, k2_plain, k2_bound, k2_by, k2_lib)}
 
 
 # -- the Van der Pol NLMPC of examples/vanderpol_ex.cpp (bench.py:444-480) -----
@@ -1294,12 +1211,12 @@ def phase_main_nlmpc(torch, lt, qpf, host, mods):
           launches_chol_inverse=launches["chol_inverse"],
           launches_admm_fused=launches["admm_fused"],
           host_reads=reads, host_reads_per_step=f"{reads / K_NL:.1f}",
-          wall_s=f"{wall:.3f}", solves_per_s=f"{B_NL * K_NL / wall:.1f}")
+          wall_s=f"{wall:.3f}")
     require(launches["qp_inner"] > 0, "NLMPC main path launched K3")
     require(launches["chol_inverse"] > 0, "NLMPC main path launched K2")
     require(frac >= 0.999, f"NLMPC success fraction {frac} >= 0.999")
     require(cmd_max <= 0.5 + 1e-5, f"commands never above 0.5 + 1e-5 (max {cmd_max})")
-    return launches, wall
+    return launches
 
 
 def phase_matched_nlmpc(torch, lt):
@@ -1369,102 +1286,27 @@ def k3_bound_ms(iters, n, m, refactorizations=0):
     return _bound(words, flops)
 
 
-def phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, main_wall=None):
-    dev, f32 = "cuda", torch.float32
-    # K3 and its twin on the scaled problem (the kernel's own inputs), cold
-    t = [torch.as_tensor(a, dtype=f32, device=dev) for a in vdp_qps(B_NL, 0)]
-    x0 = torch.zeros((B_NL, N_NL), dtype=f32, device=dev)
-    y0 = torch.zeros((B_NL, M_NL), dtype=f32, device=dev)
-    args = k3_scaled_args(torch, qpf, vdp_qps(B_NL, 0), f32)
-    kw = dict(K3_KW, refine=True)
-    k3_ms = cuda_ms(torch, lambda: qpf._iterate_kernel(*args, **kw), reps=10)
-    k3_plain = cuda_ms(torch, lambda: qpf._iterate_plain(*args, **kw), reps=3, warmup=1)
-    iters = qpf._iterate_kernel(*args, **kw)[3].cpu().numpy()
-    refact = k3_refactorizations(torch, qpf, args, kw)
-    k3_bound, k3_by = k3_bound_ms(iters, N_NL, M_NL, refact)
-    whole_ms = cuda_ms(torch, lambda: qpf.solve_batched(*t, x0, y0, **K3_KW), reps=10)
-    # K2 at the path's shape, beside the one library call for the same function
-    C = torch.as_tensor(spd_batch(B_NL, ME_NL, seed=3), dtype=f32, device=dev)
-    k2_ms = cuda_ms(torch, lambda: batched_linalg.chol_inverse(C), reps=20)
-    k2_plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(C), reps=20)
-    k2_lib = cuda_ms(torch, lambda: torch.linalg.inv(C), reps=20)
-    phase("times-kernels-nlmpc", card=repr(card), K3_ms=f"{k3_ms:.4f}",
-          K3_plain_ms=f"{k3_plain:.4f}", K3_bound_ms=f"{k3_bound:.5f}", K3_bound_by=k3_by,
-          K3_iters_mean=f"{iters.mean():.1f}", K3_refactorizations_twin=refact,
-          K3_with_host_side_ms=f"{whole_ms:.4f}",
-          K3_shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32",
-          K2_ms=f"{k2_ms:.4f}", K2_plain_ms=f"{k2_plain:.4f}", K2_library_ms=f"{k2_lib:.4f}",
-          K2_shape=f"({B_NL},{ME_NL},{ME_NL}),float32")
+def family_ms(prof):
+    """Device milliseconds by ``mpcbench.trace.family`` (the benchmark's
+    kernel families) and the number of device activities, from the CUDA
+    rows of a ``torch.profiler`` run (operator rows would count the same
+    time twice)."""
+    from mpcbench.trace import family
 
-    # one optimize, cold then warm (the same state again)
-    x0_h, noise_h = vdp_closed_loop_inputs(B_NL, K_NL)
-    xs0 = torch.as_tensor(x0_h, dtype=f32, device=dev)
-    u0 = torch.zeros((B_NL, 1), dtype=f32, device=dev)
-    cc = vdp_controller(lt, f32, dev, vdp_params(lt))
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = cc.optimize(xs0, u0 if not times else r.cmd)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0, cc._last_iters.float().mean().item()))
-    # closed loop, two runs (the main path's, where it ran, is the first): a
-    # host-driven loop moves more between calls than within one
-    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
-    rates = [B_NL * K_NL / main_wall] if main_wall else []
-    while len(rates) < 2:
-        cl = vdp_controller(lt, f32, dev, vdp_params(lt))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lt.nlmpc_rollout(cl, vdp_plant(torch, noise), xs0, u0, K_NL)
-        torch.cuda.synchronize()
-        rates.append(B_NL * K_NL / (time.perf_counter() - t0))
-    phase("times-e2e-nlmpc", card=repr(card), B=B_NL,
-          optimize_cold_ms=f"{1e3 * times[0][0]:.1f}", cold_sqp_iters_mean=f"{times[0][1]:.2f}",
-          optimize_warm_ms="/".join(f"{1e3 * t_:.1f}" for t_, _ in times[1:]),
-          warm_sqp_iters_mean="/".join(f"{i:.2f}" for _, i in times[1:]),
-          closed_loop_steps=K_NL,
-          closed_loop_solves_per_s="/".join(f"{r_:.1f}" for r_ in rates),
-          closed_loop_mean=f"{float(np.mean(rates)):.1f}",
-          first_is_the_main_path_run=main_wall is not None)
-    return {"qp_inner": (k3_ms, k3_plain, k3_bound, k3_by, None),
-            "k2_nlmpc": (k2_ms, k2_plain, k2_lib)}
-
-
-KERNEL_FAMILIES = (("admm_", "K1 admm_fused"), ("qp_inner", "K3 qp_inner"),
-                   ("chol_inverse", "K2 chol_inverse"), ("traj_factor", "K4 traj_factor"),
-                   ("traj_sweep", "K5 traj_sweep"))
-
-
-def device_ms_by_family(prof):
-    """Device milliseconds by kernel family and the number of launches, from
-    the CUDA kernel rows of a ``torch.profiler`` run (operator rows would
-    count the same time twice)."""
-    fam = {label: 0.0 for _, label in KERNEL_FAMILIES}
-    fam.update({"matmul (cuBLAS)": 0.0, "reductions": 0.0, "elementwise and other": 0.0})
-    count = 0
+    fam, count = {}, 0
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
-            ms = ev.self_device_time_total / 1e3
+            key = family(ev.key)
+            fam[key] = fam.get(key, 0.0) + ev.self_device_time_total / 1e3
             count += ev.count
-            key = ev.key.lower()
-            own = [label for word, label in KERNEL_FAMILIES if word in key]
-            if own:
-                fam[own[0]] += ms
-            elif "gemm" in key or "gemv" in key or "cutlass" in key or "bmm" in key:
-                fam["matmul (cuBLAS)"] += ms
-            elif "reduce" in key:
-                fam["reductions"] += ms
-            else:
-                fam["elementwise and other"] += ms
     return fam, count
 
 
-def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
+def profile_loop(torch, host, tag, c, plant, x, u, warm_from, warm_steps):
     """Device time by kernel family over the cold step and over
-    ``warm_steps`` warm steps of a closed loop driven through ``optimize``
-    (CUDA kernel rows of ``torch.profiler`` only), then the peak memory of
-    two more steps."""
+    ``warm_steps`` warm steps of an NLMPC closed loop driven through
+    ``optimize`` (CUDA kernel rows of ``torch.profiler`` only), then the
+    peak memory of two more steps."""
     from torch.profiler import ProfilerActivity, profile
 
     c.set_stats_mode("lazy")
@@ -1483,15 +1325,14 @@ def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
             x, u = steps(k0, n, x, u)
             torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-        fam, count = device_ms_by_family(prof)
+        fam, count = family_ms(prof)
         busy = sum(fam.values())
         phase(name, steps=n, wall_ms_per_step=f"{wall / n:.1f}",
               device_busy_ms_per_step=f"{busy / n:.1f}",
               idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
               kernel_launches_per_step=f"{count / n:.0f}",
               host_reads_per_step=f"{host.reads / n:.1f}",
-              **{f"{'admm' if tag == 'lmpc' else 'sqp'}_iters_mean":
-                 f"{c._last_iters.float().mean().item():.2f}"},
+              sqp_iters_mean=f"{c._last_iters.float().mean().item():.2f}",
               **{k.replace(" ", "_"): f"{v / n:.2f}ms({100 * v / max(busy, 1e-9):.1f}%)"
                  for k, v in fam.items() if v > 0})
         return x, u
@@ -1504,31 +1345,6 @@ def profile_loop(torch, host, tag, c, plant, x, u, warm_from=4, warm_steps=4):
     torch.cuda.synchronize()
     phase(f"profile-{tag}-memory",
           peak_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
-
-
-def phase_profile_lmpc(torch, lt, host):
-    """``--profile``: the quadrotor closed loop (B=16384; ``host_reads_per_step``
-    counts every read of ``ops/_host.py``, one a check block among them)."""
-    dev, f32 = "cuda", torch.float32
-    Ad, Bd = quadrotor_model()
-    Ad_t = torch.as_tensor(Ad, dtype=f32, device=dev)
-    Bd_t = torch.as_tensor(Bd, dtype=f32, device=dev)
-    x0_h, noise_h = closed_loop_inputs(B_MAIN, K_MAIN)
-    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
-    plant = lambda x, u, k: x @ Ad_t.T + u @ Bd_t.T + noise[k]
-    profile_loop(torch, host, "lmpc", quadrotor_controller(lt, f32, dev, closed_loop_params(lt)),
-                 plant, torch.as_tensor(x0_h, dtype=f32, device=dev),
-                 torch.zeros((B_MAIN, 4), dtype=f32, device=dev))
-
-
-def phase_profile_nlmpc(torch, lt, host):
-    """``--profile``: the Van der Pol loop (B=4096)."""
-    dev, f32 = "cuda", torch.float32
-    x0_h, noise_h = vdp_closed_loop_inputs(B_NL, K_NL)
-    noise = torch.as_tensor(noise_h, dtype=f32, device=dev)
-    profile_loop(torch, host, "nlmpc", vdp_controller(lt, f32, dev, vdp_params(lt)),
-                 vdp_plant(torch, noise), torch.as_tensor(x0_h, dtype=f32, device=dev),
-                 torch.zeros((B_NL, 1), dtype=f32, device=dev))
 
 
 def phase_profile_osc(torch, lt, host):
@@ -1554,7 +1370,7 @@ def phase_profile_osc_rollout(torch, lt, tk, host, mods, steps=4):
     plain_wall = run_osc(torch, lt, tk, host, mods, B_OSC, steps)[-1]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         *_, reads, wall = run_osc(torch, lt, tk, host, mods, B_OSC, steps)
-    fam, count = device_ms_by_family(prof)
+    fam, count = family_ms(prof)
     busy = sum(fam.values()) / 1e3
     phase("profile-osc-rollout", B=B_OSC, steps=steps, wall_s_traced=f"{wall:.3f}",
           wall_s_untraced=f"{plain_wall:.3f}", tracing_slowdown=f"{wall / plain_wall:.3f}",
@@ -1639,13 +1455,15 @@ K3_SHARED_SHAPE = (N_NL, ME_NL, 138)  # n, me, mi: m = 184, the JAX gate's large
 
 def phase_k3_speed(torch, qpf, card):
     """K3's time at Van der Pol's shape (B=4096, n=26, m=57) on the scaled
-    problem ``phase_times_nlmpc`` times, cold (CUDA events), float32 and
-    float64, beside its bound (with the refactorizations the twin makes on
-    the same inputs), its time before the redesign, the registers and
-    spills of each tier and type from ``-Xptxas -v``, the tier, the float32
-    iteration histogram, one instance's time per iteration alone and at one
-    instance per SM, and the float32 time at a shape of the shared-memory
-    tier (n=26, m=184: k3_qps data)."""
+    problem (the kernel's own inputs), cold (CUDA events), float32 and
+    float64, beside the float32 plain twin's time on the same inputs and
+    the float32 ``solve_batched`` with its host-side scaling, its bound
+    (with the refactorizations the twin makes on the same inputs), its time
+    before the redesign, the registers and spills of each tier and type from
+    ``-Xptxas -v``, the tier, the float32 iteration histogram, one
+    instance's time per iteration alone and at one instance per SM, and the
+    float32 time at a shape of the shared-memory tier (n=26, m=184: k3_qps
+    data).  Returns the kernels line's numbers."""
     f32, f64 = torch.float32, torch.float64
     tier = lambda n, m: k3_tier(qpf, n, m)
     kw = dict(K3_KW, refine=True)
@@ -1653,6 +1471,11 @@ def phase_k3_speed(torch, qpf, card):
     args = {dt: k3_scaled_args(torch, qpf, data, dt) for dt in (f32, f64)}
     times = {dt: cuda_ms(torch, lambda: qpf._iterate_kernel(*a, **kw), reps=10)
              for dt, a in args.items()}
+    plain = cuda_ms(torch, lambda: qpf._iterate_plain(*args[f32], **kw), reps=3, warmup=1)
+    t = [torch.as_tensor(a, dtype=f32, device="cuda") for a in data]
+    x0 = torch.zeros((B_NL, N_NL), dtype=f32, device="cuda")
+    y0 = torch.zeros((B_NL, M_NL), dtype=f32, device="cuda")
+    whole = cuda_ms(torch, lambda: qpf.solve_batched(*t, x0, y0, **K3_KW), reps=10)
     iters = qpf._iterate_kernel(*args[f32], **kw)[3].cpu().numpy()
     iters64 = qpf._iterate_kernel(*args[f64], **kw)[3].cpu().numpy()
     refact = k3_refactorizations(torch, qpf, args[f32], kw)
@@ -1671,8 +1494,9 @@ def phase_k3_speed(torch, qpf, card):
                                                       ("shared", "qp_inner_kernel"))}
     phase("K3-speed", card=repr(card), shape=f"B={B_NL},n={N_NL},m={M_NL},cold",
           tier=tier(N_NL, M_NL), ms_float32=f"{times[f32]:.4f}",
-          ms_float64=f"{times[f64]:.4f}", ms_before=K3_MS_BEFORE, bound_ms=f"{bound:.5f}",
-          bound_by=by, refactorizations_twin=refact,
+          ms_float64=f"{times[f64]:.4f}", plain_ms_float32=f"{plain:.4f}",
+          ms_with_host_side_float32=f"{whole:.4f}", ms_before=K3_MS_BEFORE,
+          bound_ms=f"{bound:.5f}", bound_by=by, refactorizations_twin=refact,
           refactorizations_per_lane=f"{refact / B_NL:.3f}",
           iters_mean_float32=f"{iters.mean():.1f}", iters_float32=hist25(iters),
           iters_mean_float64=f"{iters64.mean():.1f}", iters_float64=hist25(iters64),
@@ -1684,8 +1508,8 @@ def phase_k3_speed(torch, qpf, card):
           shared_ms_float32=f"{sh_ms:.4f}", shared_iters_mean=f"{sh_iters:.1f}",
           smem_bytes_per_instance=f"{qpf.smem_bytes(N_NL, M_NL, f32)}/"
                                   f"{qpf.smem_bytes(N_NL, M_NL, f64)}")
-    return {"float32": times[f32], "float64": times[f64], "tier": tier(N_NL, M_NL),
-            "refactorizations_twin": refact}
+    return dict(ms=times[f32], plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
+                ms_float64=times[f64], tier=tier(N_NL, M_NL), refactorizations_twin=refact)
 
 
 def variant_library(name, text, tag):
@@ -2197,14 +2021,17 @@ def kernel_resources(log, name, by_tile=False):
 
 def phase_k4_speed(torch, ts, card):
     """K4's time at the oscillators' shape (CUDA events), float32 and
-    float64, beside its bound, its time before the redesign and its
-    registers and spills; float32 also at 64, 128 and 256 threads a block
-    and with one instance per SM."""
+    float64, beside the float32 plain twin's time, its bound, its time
+    before the redesign and its registers and spills; float32 also at 64,
+    128 and 256 threads a block and with one instance per SM.  Returns the
+    kernels line's numbers."""
     blocks = traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)
     data = {dt: [torch.as_tensor(a, dtype=dt, device="cuda") for a in blocks]
             for dt in (torch.float32, torch.float64)}
     times = {dt: cuda_ms(torch, lambda: ts.batched_factor(*t, BSP_O), reps=20)
              for dt, t in data.items()}
+    plain = cuda_ms(torch, lambda: ts.traj_factor_plain(*data[torch.float32], BSP_O), reps=3,
+                    warmup=1)
     # float32 at other block sizes, and with one instance per SM (the chain of
     # one instance alone: latency, where the full batch adds contention)
     threads, by_threads = ts.FACTOR_THREADS, {}
@@ -2225,15 +2052,16 @@ def phase_k4_speed(torch, ts, card):
     phase("K4-speed", card=repr(card),
           shape=f"B={B_OSC},ph={PH_O},bs={BS_O},bs_p={BSP_O},w={W_O}",
           ms_float32=f"{times[torch.float32]:.4f}", ms_float64=f"{times[torch.float64]:.4f}",
-          ms_before=K4_MS_BEFORE, bound_ms=f"{bound:.5f}", bound_by=by,
-          threads=threads,
+          plain_ms_float32=f"{plain:.4f}", ms_before=K4_MS_BEFORE, bound_ms=f"{bound:.5f}",
+          bound_by=by, threads=threads,
           ms_float32_by_threads="/".join(f"{k}:{v:.4f}" for k, v in by_threads.items()),
           **{f"ms_float32_B{n_sm}_one_per_sm": f"{t_one:.4f}"},
           regs_spill_st_ld_float32=fmt(res.get("float32")),
           regs_spill_st_ld_float64=fmt(res.get("float64")),
           smem_bytes_float32=ts.factor_smem_bytes(BS_O, BSP_O, W_O, torch.float32),
           smem_bytes_float64=ts.factor_smem_bytes(BS_O, BSP_O, W_O, torch.float64))
-    return times
+    return dict(ms=times[torch.float32], plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 def phase_k5(torch, ts, batched_linalg):
@@ -2343,16 +2171,18 @@ def sweep_inputs(torch, ts, batched_linalg, data):
 
 def phase_k5_speed(torch, ts, batched_linalg, card):
     """K5's time at the oscillators' shape (CUDA events), float32 and
-    float64, beside its bound, its time before the redesign, its registers
-    and spills and its shared memory; float32 also at each number of
-    instances a block and with one instance per SM (B = the SM count: one
-    instance's chain alone)."""
+    float64, beside the float32 plain twin's time, its bound, its time
+    before the redesign, its registers and spills and its shared memory;
+    float32 also at each number of instances a block and with one instance
+    per SM (B = the SM count: one instance's chain alone).  Returns the
+    kernels line's numbers."""
     blocks = traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)
     args = {dt: sweep_inputs(torch, ts, batched_linalg,
                              [torch.as_tensor(a, dtype=dt, device="cuda") for a in blocks])
             for dt in (torch.float32, torch.float64)}
     times = {dt: cuda_ms(torch, lambda: ts.batched_sweep_solve(*a), reps=50)
              for dt, a in args.items()}
+    plain = cuda_ms(torch, lambda: ts.traj_solve_plain(*args[torch.float32]), reps=3, warmup=1)
     warps, by_warps = ts.SWEEP_WARPS, {}
     try:
         for nw in (1, 2, 4, 8):
@@ -2371,8 +2201,8 @@ def phase_k5_speed(torch, ts, batched_linalg, card):
     smem = {dt: ts.sweep_smem_bytes(PH_O, BS_O, W_O, dt) for dt in args}
     phase("K5-speed", card=repr(card), shape=f"B={B_OSC},ph={PH_O},bs={BS_O},w={W_O}",
           ms_float32=f"{times[torch.float32]:.4f}", ms_float64=f"{times[torch.float64]:.4f}",
-          ms_before=K5_MS_BEFORE, bound_ms=f"{bound:.5f}", bound_by=by,
-          instances_per_block=warps,
+          plain_ms_float32=f"{plain:.4f}", ms_before=K5_MS_BEFORE, bound_ms=f"{bound:.5f}",
+          bound_by=by, instances_per_block=warps,
           ms_float32_by_instances_per_block="/".join(f"{k}:{v:.4f}" for k, v in by_warps.items()),
           **{f"ms_float32_B{n_sm}_one_per_sm": f"{t_one:.4f}"},
           regs_spill_st_ld_float32=fmt(res.get("float32")),
@@ -2380,7 +2210,8 @@ def phase_k5_speed(torch, ts, batched_linalg, card):
           smem_bytes_per_instance_float32=smem[torch.float32],
           smem_bytes_per_instance_float64=smem[torch.float64],
           smem_bytes_per_block=f"{warps * smem[torch.float32]}/{warps * smem[torch.float64]}")
-    return times
+    return dict(ms=times[torch.float32], plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 K2_BLOCKED_SHAPES = ((256, NZ_O + 1), (256, ME_O))  # float32 pdip at oscillator size
@@ -2447,13 +2278,15 @@ def phase_k2_every_k(torch, bl):
 
 
 # K2's shapes in the K2-speed line: the LMPC polish, the Van der Pol
-# second-order correction, the oscillators' border, and the widths of the
-# UGV's KKT inverse (61) and the blocked recursion's leaves (48)
-K2_SPEED_SHAPES = ((B_MAIN, 24), (B_NL, ME_NL), (B_OSC, W_O), (256, 48), (256, 61))
+# second-order correction, the oscillators' border, the blocked recursion's
+# leaves (48), and the UGV path's KKT inverse (61), second-order correction
+# (40) and polish capacitance (24) (UGV_K2_SHAPES)
+K2_SPEED_SHAPES = ((B_MAIN, 24), (B_NL, ME_NL), (B_OSC, W_O), (256, 48), (256, 61), (256, 40),
+                   (256, 24))
 # K2 before its redesign (a warp a matrix, shared-memory chains) by
 # "float32_B16384_k24" and so on: (device ms from a CUDA graph of launches,
-# host us a call); chip_smoke.py --phases k2 --k2-before on that tree, step 0
-# of K2's redesign in PERF.md
+# host us a call), that tree's K2 timed beside the redesigned one in one
+# process (PERF.md §6, K2)
 K2_MS_BEFORE = {
     "float32_B16384_k24": (0.21194, 15.25), "float64_B16384_k24": (0.34490, 19.17),
     "float32_B4096_k20": (0.04560, 15.03), "float64_B4096_k20": (0.07319, 18.78),
@@ -2501,19 +2334,20 @@ def k2_layout_str(bl, lay):
 K2_SPEED_REPS = 7  # interleaved repetitions of the kernel's and the empty kernel's graphs
 
 
-def phase_k2_speed(torch, bl, card, other=None):
+def phase_k2_speed(torch, bl, card):
     """K2's speed at each of ``K2_SPEED_SHAPES`` in both types, one
     ``K2-speed`` line each: device ms from CUDA graphs of launches
     (:func:`graph_ms`) and an empty kernel's device ms on K2's grid measured
     the same way, ``K2_SPEED_REPS`` times each, interleaved (the medians,
     and the median and range of their differences), host us a call
     (:func:`host_us`), ms by CUDA events over back-to-back calls (the
-    measure of earlier PRs), ``torch.linalg.inv``'s ms (events), the bound,
-    the time before the redesign (``other``, the kernel of another checkout
-    timed here, or ``K2_MS_BEFORE``), the layout, and registers, stack and
-    spills of the instance.  Then the blocked recursion at (256,302,302)
-    float32 and a ``K2-resources`` line.  Returns the numbers by (B, k,
-    type name)."""
+    kernels line's ``ms``), the plain twin's and ``torch.linalg.inv``'s ms
+    (events), the bound, the time before the redesign (``K2_MS_BEFORE``),
+    the layout, and registers, stack and spills of the instance; each
+    input's inverse is held to the twin's.  Then the blocked recursion at
+    (256,302,302) float32 beside its twin, the library call and its bound,
+    and a ``K2-resources`` line.  Returns the numbers by (B, k, type name)
+    and, under "blocked", the blocked recursion's."""
     b = _build_mod()
     lib = b.library()
     res_regs = k2_resources(b.build_info.get("log", ""))
@@ -2531,6 +2365,8 @@ def phase_k2_speed(torch, bl, card, other=None):
             lay = bl.layout(B, k, dtype)
             n = 20 if B * k * k > 2 ** 20 else 100
             call = lambda: bl.chol_inverse(C)
+            require(_rel(call(), bl.chol_inverse_plain(C)) <= tol,
+                    f"K2 {key} within {tol} of its twin")
             dev, emp = [], []
             for _ in range(K2_SPEED_REPS):
                 dev.append(graph_ms(torch, call, n))
@@ -2539,26 +2375,20 @@ def phase_k2_speed(torch, bl, card, other=None):
             row = dict(device_ms=med(dev), empty_ms=med(emp), over_empty_us=med(over),
                        over_empty_us_range=(min(over), max(over)),
                        host_us=host_us(torch, call), ms=cuda_ms(torch, call, reps=20),
+                       plain_ms=cuda_ms(torch, lambda: bl.chol_inverse_plain(C), reps=10),
                        library_ms=cuda_ms(torch, lambda: torch.linalg.inv(C), reps=10))
             row["bound_ms"], row["bound_by"] = k2_bound_ms(B, k, C.element_size())
-            if other is not None:
-                ocall = lambda: other.chol_inverse(C)
-                require(_rel(ocall(), bl.chol_inverse_plain(C)) <= tol,
-                        f"the other checkout's K2 {key}")
-                before = (graph_ms(torch, ocall, n), host_us(torch, ocall))
-            else:
-                before = K2_MS_BEFORE.get(key)
+            before = K2_MS_BEFORE.get(key)
             phase("K2-speed", card=repr(card), shape=f"({B},{k},{k})", dtype=name,
                   device_ms=f"{row['device_ms']:.5f}", host_us_per_call=f"{row['host_us']:.2f}",
                   empty_kernel_device_ms=f"{row['empty_ms']:.5f}",
                   over_empty_us=f"{row['over_empty_us']:.3f}",
                   over_empty_us_range="{:.3f}..{:.3f}".format(*row["over_empty_us_range"]),
                   reps=K2_SPEED_REPS, events_ms=f"{row['ms']:.5f}",
-                  library_ms=f"{row['library_ms']:.5f}",
-                  bound_ms=f"{row['bound_ms']:.5f}", bound_by=row["bound_by"],
+                  plain_ms=f"{row['plain_ms']:.5f}", library_ms=f"{row['library_ms']:.5f}",
+                  bound_ms=f"{row['bound_ms']:.6f}", bound_by=row["bound_by"],
                   before_device_ms="not measured" if before is None else f"{before[0]:.5f}",
                   before_host_us="not measured" if before is None else f"{before[1]:.2f}",
-                  before_from="this run" if other is not None else "K2_MS_BEFORE",
                   layout=k2_layout_str(bl, lay),
                   regs_stack_spill_st_ld=fmt(res_regs.get(k2_layout_key(bl, lay, dtype))))
             out[(B, k, name)] = row
@@ -2567,10 +2397,15 @@ def phase_k2_speed(torch, bl, card, other=None):
     C = torch.as_tensor(spd_batch(Bb, kb, seed=kb), dtype=torch.float32, device="cuda")
     call = lambda: bl.chol_inverse_blocked(C)
     blocked = dict(device_ms=graph_ms(torch, call, 10), host_us=host_us(torch, call, 50),
-                   ms=cuda_ms(torch, call, reps=10))
+                   ms=cuda_ms(torch, call, reps=10),
+                   plain_ms=cuda_ms(torch, lambda: bl.chol_inverse_plain(C), reps=5),
+                   library_ms=cuda_ms(torch, lambda: torch.linalg.inv(C), reps=5))
+    blocked["bound_ms"], blocked["bound_by"] = k2_bound_ms(Bb, kb)
     phase("K2-speed-blocked", card=repr(card), shape=f"({Bb},{kb},{kb})", dtype="float32",
           device_ms=f"{blocked['device_ms']:.5f}", host_us_per_call=f"{blocked['host_us']:.2f}",
-          events_ms=f"{blocked['ms']:.5f}")
+          events_ms=f"{blocked['ms']:.5f}", plain_ms=f"{blocked['plain_ms']:.5f}",
+          library_ms=f"{blocked['library_ms']:.5f}", bound_ms=f"{blocked['bound_ms']:.5f}",
+          bound_by=blocked["bound_by"])
     phase("K2-resources", regs_stack_spill_st_ld=";".join(
         f"{k_}={fmt(v)}" for k_, v in sorted(res_regs.items())),
           build_seconds=f"{b.build_info.get('seconds', 0.0):.1f}")
@@ -2735,7 +2570,7 @@ def phase_main_osc(torch, lt, tk, sqp, qpf, host, mods):
               rescued_per_step=json.dumps([n for _, n in resc]).replace(" ", ""),
               solves_per_s=f"{B * 4 / wall_b:.1f}")
         require(bool(torch.isfinite(rb.inputs).all().item()), f"commands finite at B={B}")
-    return launches, wall
+    return launches
 
 
 def phase_matched_osc(torch, lt, sqp):
@@ -2803,58 +2638,6 @@ def traj_sweep_bound_ms(B, ph, bs, w):
                  + 2 * ph * bs + 2 * w)
     flops = B * (ph * (8 * bs * bs + 4 * bs * w) + 2 * w * w)
     return _bound(words, flops)
-
-
-def phase_times_osc(torch, lt, tk, host, mods, ts, batched_linalg, card, main_wall=None):
-    dev, f32 = "cuda", torch.float32
-    data = [torch.as_tensor(a, dtype=f32, device=dev)
-            for a in traj_blocks(B_OSC, PH_O, BSP_O, NX_O, W_O, seed=B_OSC)]
-    k4_ms = cuda_ms(torch, lambda: ts.batched_factor(*data, BSP_O), reps=20)
-    k4_plain = cuda_ms(torch, lambda: ts.traj_factor_plain(*data, BSP_O), reps=3, warmup=1)
-    sweep = sweep_inputs(torch, ts, batched_linalg, data)
-    k5_ms = cuda_ms(torch, lambda: ts.batched_sweep_solve(*sweep), reps=20)
-    k5_plain = cuda_ms(torch, lambda: ts.traj_solve_plain(*sweep), reps=3, warmup=1)
-    k4_bound, k4_by = traj_factor_bound_ms(B_OSC, PH_O, BS_O, BSP_O, W_O)
-    k5_bound, k5_by = traj_sweep_bound_ms(B_OSC, PH_O, BS_O, W_O)
-    # K2 at the border's shape and K2 blocked, beside the library call
-    G8 = torch.as_tensor(spd_batch(B_OSC, W_O, seed=5), dtype=f32, device=dev)
-    k2_ms = cuda_ms(torch, lambda: batched_linalg.chol_inverse(G8), reps=20)
-    k2_plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(G8), reps=20)
-    k2_lib = cuda_ms(torch, lambda: torch.linalg.inv(G8), reps=20)
-    Bb, kb = K2_BLOCKED_SHAPES[0]
-    Cb = torch.as_tensor(spd_batch(Bb, kb, seed=kb), dtype=f32, device=dev)
-    kb_ms = cuda_ms(torch, lambda: batched_linalg.chol_inverse_blocked(Cb), reps=5)
-    kb_plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(Cb), reps=5)
-    kb_lib = cuda_ms(torch, lambda: torch.linalg.inv(Cb), reps=5)
-    k2_bound, k2_by = k2_bound_ms(B_OSC, W_O)
-    kb_bound, kb_by = k2_bound_ms(Bb, kb)
-    phase("times-kernels-osc", card=repr(card),
-          K4_ms=f"{k4_ms:.4f}", K4_plain_ms=f"{k4_plain:.4f}", K4_bound_ms=f"{k4_bound:.5f}",
-          K4_bound_by=k4_by,
-          K4_shape=f"B={B_OSC},ph={PH_O},bs={BS_O},bs_p={BSP_O},w={W_O},float32",
-          K5_ms=f"{k5_ms:.4f}", K5_plain_ms=f"{k5_plain:.4f}", K5_bound_ms=f"{k5_bound:.5f}",
-          K5_bound_by=k5_by,
-          K2_ms=f"{k2_ms:.4f}", K2_plain_ms=f"{k2_plain:.4f}", K2_library_ms=f"{k2_lib:.4f}",
-          K2_bound_ms=f"{k2_bound:.6f}", K2_bound_by=k2_by,
-          K2_shape=f"({B_OSC},{W_O},{W_O}),float32",
-          K2_blocked_ms=f"{kb_ms:.4f}", K2_blocked_plain_ms=f"{kb_plain:.4f}",
-          K2_blocked_library_ms=f"{kb_lib:.4f}", K2_blocked_bound_ms=f"{kb_bound:.5f}",
-          K2_blocked_bound_by=kb_by, K2_blocked_shape=f"({Bb},{kb},{kb}),float32")
-    # two runs of the closed loop; the main path's, where it ran, is the first
-    walls = [main_wall] if main_wall else []
-    while len(walls) < 2:
-        walls.append(run_osc(torch, lt, tk, host, mods, B_OSC, K_OSC)[-1])
-    rates = [B_OSC * K_OSC / w_ for w_ in walls]
-    phase("times-e2e-osc", card=repr(card), B=B_OSC, closed_loop_steps=K_OSC,
-          closed_loop_s="/".join(f"{w_:.3f}" for w_ in walls),
-          closed_loop_solves_per_s="/".join(f"{r_:.1f}" for r_ in rates),
-          closed_loop_mean=f"{float(np.mean(rates)):.1f}",
-          step_ms_mean=f"{1e3 * float(np.mean(walls)) / K_OSC:.1f}",
-          first_is_the_main_path_run=main_wall is not None)
-    return {"traj_factor": (k4_ms, k4_plain, k4_bound, k4_by, None),
-            "traj_sweep": (k5_ms, k5_plain, k5_bound, k5_by, None),
-            "k2_osc": (k2_ms, k2_plain, k2_lib, k2_bound),
-            "k2_blocked": (kb_ms, kb_plain, kb_lib, kb_bound)}
 
 
 # -- the UGV obstacle avoidance of examples/ugv_ex.cpp (bench.py:672-822) ----
@@ -3009,8 +2792,7 @@ def phase_main_ugv(torch, lt, admm, batched_linalg, host, mods):
           k2_by_shape=json.dumps(shapes).replace(" ", ""),
           launches_eig_clip=k6_launches,
           host_reads=reads, host_reads_per_step=f"{reads / K_UGV:.1f}",
-          wall_s=f"{wall:.3f}", wall_ms_per_step=f"{1e3 * wall / K_UGV:.1f}",
-          solves_per_s=f"{B_UGV * K_UGV / wall:.1f}")
+          wall_s=f"{wall:.3f}", wall_ms_per_step=f"{1e3 * wall / K_UGV:.1f}")
     phase("ugv-references", oracle_f64_B=B0,
           oracle_goal_frac=f"{oracle['goal_frac']:.4f}",
           oracle_avoid_frac=f"{oracle['avoid_frac']:.4f}",
@@ -3021,9 +2803,9 @@ def phase_main_ugv(torch, lt, admm, batched_linalg, host, mods):
     require(k6_launches > 0, "UGV main path launched K6")
     require(frac["avoid_frac"] == 1.0, f"UGV avoid fraction {frac['avoid_frac']} == 1.0")
     require(frac["success_frac"] >= 0.99, f"UGV success fraction {frac['success_frac']} >= 0.99")
-    return launches, wall, dict(frac, sqp_iters_mean=float(iters.mean()),
-                                inner_iters_mean=float(inner_iters.mean()), k2_by_shape=shapes,
-                                eig_clip_launches=k6_launches)
+    return launches, dict(frac, sqp_iters_mean=float(iters.mean()),
+                          inner_iters_mean=float(inner_iters.mean()), k2_by_shape=shapes,
+                          eig_clip_launches=k6_launches)
 
 
 def ugv_first_qps(torch, lt, admm):
@@ -3095,16 +2877,14 @@ def phase_ugv_engine_f64(torch, lt, admm, batched_linalg, sqp):
                           f"(max abs {err:.3e}, {ratio:.3f} of the tolerance)")
 
 
-def phase_k2_ugv(torch, batched_linalg, card):
+def phase_k2_ugv(torch, batched_linalg):
     """K2 against its twin at the UGV path's three shapes (the KKT inverse
     (256,61,61) in its block tier, the second-order correction (256,40,40),
-    the polish capacitance (256,24,24)) in both types, with the kernel's time
-    from CUDA graphs of launches (``graph_ms``), the twin's and
-    ``torch.linalg.inv``'s from events, and the bound.  Returns the rows of
-    the kernels line."""
-    rows = []
+    the polish capacitance (256,24,24)) in both types; their ``K2-speed``
+    lines time them.  Returns the largest error by (B, k, type name)."""
+    err = {}
     for B, k in UGV_K2_SHAPES:
-        for dtype, tol, elem in ((torch.float32, 1e-4, 4), (torch.float64, 1e-10, 8)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
             C = torch.as_tensor(spd_batch(B, k, seed=k), dtype=dtype, device="cuda")
             inv_k = batched_linalg.chol_inverse(C)
             inv_t = batched_linalg.chol_inverse_plain(C)
@@ -3113,21 +2893,12 @@ def phase_k2_ugv(torch, batched_linalg, card):
             rel = absmax / inv_t.abs().max().item()
             name = str(dtype).split(".")[-1]
             lay = batched_linalg.layout(B, k, dtype)
-            ms = graph_ms(torch, lambda: batched_linalg.chol_inverse(C))
-            plain = cuda_ms(torch, lambda: batched_linalg.chol_inverse_plain(C), reps=20)
-            lib = cuda_ms(torch, lambda: torch.linalg.inv(C), reps=20)
-            bound, by = k2_bound_ms(B, k, elem)
-            phase("K2-ugv", card=repr(card), dtype=name, shape=f"({B},{k},{k})",
+            phase("K2-ugv", dtype=name, shape=f"({B},{k},{k})",
                   tier="register" if lay.tier == batched_linalg.TIER_REGISTER else "block",
-                  rel_err=f"{rel:.3e}", max_abs_err=f"{absmax:.3e}", tol=tol,
-                  ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}", library_ms=f"{lib:.5f}",
-                  bound_ms=f"{bound:.6f}", bound_by=by,
-                  slower_than_library=ms > lib)
+                  rel_err=f"{rel:.3e}", max_abs_err=f"{absmax:.3e}", tol=tol)
             require(rel <= tol, f"K2 {name} ({B},{k},{k}) within {tol} of its twin")
-            rows.append({"shape": f"({B},{k},{k}),{name}", "ms": ms, "plain_ms": plain,
-                         "library_ms": lib, "bound_ms": bound, "bound_by": by,
-                         "max_abs_err": absmax})
-    return rows
+            err[(B, k, name)] = absmax
+    return err
 
 
 def symmetric_batch(B, n, seed=0):
@@ -3208,42 +2979,6 @@ def phase_k6(torch, bl, card):
                       "library_ms": lib, "library_kernels": lib_kernels,
                       "sweeps_mean": mean_sw, "sweeps_max": max_sw, "max_rel_err": err}
     return rows
-
-
-def phase_profile_ugv(torch, lt, host, steps=2):
-    """``--profile``: the UGV loop's kernel launches a step and the device's
-    idle share, from one window of ``steps`` steps through ``nlmpc_rollout``
-    from a cold start, traced for device activity only, after the same
-    window untraced (the tracing's cost beside the share it was measured
-    under).  A step is about 10^5 kernels: the profiler's records of a
-    longer window take minutes to read back."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def window():
-        c, plant, params_fn, x0, _ = ugv_setup(torch, lt, torch.float32, B_UGV)
-        host.reads = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = lt.nlmpc_rollout(c, plant, x0, torch.zeros((B_UGV, 2), dtype=torch.float32,
-                                                       device="cuda"), steps,
-                             params_fn=params_fn)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, host.reads, r
-
-    plain_wall, _, _ = window()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall, reads, r = window()
-    fam, count = device_ms_by_family(prof)
-    busy = sum(fam.values()) / 1e3
-    phase("profile-ugv-rollout", B=B_UGV, steps=steps, wall_s_traced=f"{wall:.3f}",
-          wall_s_untraced=f"{plain_wall:.3f}", tracing_slowdown=f"{wall / plain_wall:.3f}",
-          device_busy_s=f"{busy:.3f}", idle_share_traced=f"{1 - busy / wall:.3f}",
-          idle_share_against_untraced_wall=f"{1 - busy / plain_wall:.3f}",
-          kernel_launches_per_step=f"{count / steps:.0f}",
-          host_reads_per_step=f"{reads / steps:.1f}",
-          sqp_iters_mean=f"{r.iterations.float().mean().item():.2f}",
-          **{k.replace(" ", "_"): f"{v / steps:.1f}ms_per_step"
-             for k, v in fam.items() if v > 0})
 
 
 # -- the batch-sharded fleets (libmpc_tpu_torch/parallel) -----------------------
@@ -4015,7 +3750,7 @@ def phase_surface(torch, lt, card, mods):
 
 
 PHASES = ("k1", "k2", "k3", "k4", "k5", "k6", "lmpc", "nlmpc", "osc", "ugv", "fleet", "qp_sharded",
-          "surface", "times")
+          "surface")
 
 
 def main(argv=None) -> int:
@@ -4023,7 +3758,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + " ".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of the NLMPC loops that run")
+                    help="with osc: a torch.profiler breakdown of the oscillator loop")
     ap.add_argument("--sweep-k3", action="store_true",
                     help="time K3 for several warps per block")
     ap.add_argument("--k3-clocks", action="store_true",
@@ -4032,9 +3767,6 @@ def main(argv=None) -> int:
                     help="cycles of each barrier phase of K4 (an instrumented copy)")
     ap.add_argument("--k1-clocks", action="store_true",
                     help="cycles of each phase of a staged K1 block (an instrumented copy)")
-    ap.add_argument("--k2-before", type=Path, default=None, metavar="DIR",
-                    help="with k2: time another checkout's K2 (DIR, its root) beside this "
-                         "tree's in the K2-speed lines")
     ap.add_argument("--k2-ablate", action="store_true",
                     help="K2's register tier timed without its passes or its stores "
                          "(copies built for it)")
@@ -4083,7 +3815,6 @@ def main(argv=None) -> int:
     from libmpc_tpu_torch.ops import trajectory_sweeps as ts
 
     mods = (admm_fused, batched_linalg, qpf, ts)
-    wall_nl = wall_osc = None
     card = phase_environment(torch, admm)
     phase_build()
     if "k1" in want:
@@ -4094,19 +3825,17 @@ def main(argv=None) -> int:
         k2_err.update(phase_k2_nlmpc(torch, batched_linalg))
         k2b_err = phase_k2_blocked(torch, batched_linalg)
         k2_every = phase_k2_every_k(torch, batched_linalg)
-        k2_other = (load_other(opts.k2_before, "batched_linalg")
-                    if opts.k2_before is not None else None)
-        k2_speed = phase_k2_speed(torch, batched_linalg, card, k2_other)
+        k2_speed = phase_k2_speed(torch, batched_linalg, card)
     if "k3" in want:
         k3_err = phase_k3(torch, qpf)
         k3_speed = phase_k3_speed(torch, qpf, card)
         phase_k3_caps(torch, qpf)
     if "k4" in want:
         k4_err = phase_k4(torch, ts, lt, tk)
-        phase_k4_speed(torch, ts, card)
+        k4_speed = phase_k4_speed(torch, ts, card)
     if "k5" in want:
         k5_err = phase_k5(torch, ts, batched_linalg)
-        phase_k5_speed(torch, ts, batched_linalg, card)
+        k5_speed = phase_k5_speed(torch, ts, batched_linalg, card)
     if "k6" in want:
         k6_rows = phase_k6(torch, batched_linalg, card)
     if "lmpc" in want:
@@ -4114,31 +3843,25 @@ def main(argv=None) -> int:
         phase_matched(torch, lt)
         phase_golden_f64(torch, lt, admm_fused, batched_linalg)
     if "nlmpc" in want:
-        launches_nl, wall_nl = phase_main_nlmpc(torch, lt, qpf, host, mods)
+        launches_nl = phase_main_nlmpc(torch, lt, qpf, host, mods)
         phase_matched_nlmpc(torch, lt)
         phase_golden_f64_nlmpc(torch, lt, mods)
     if "osc" in want:
-        launches_osc, wall_osc = phase_main_osc(torch, lt, tk, sqp, qpf, host, mods)
+        launches_osc = phase_main_osc(torch, lt, tk, sqp, qpf, host, mods)
         osc_err = phase_matched_osc(torch, lt, sqp)
     if "ugv" in want:
-        launches_ugv, _, ugv_sum = phase_main_ugv(torch, lt, admm, batched_linalg, host, mods)
+        launches_ugv, ugv_sum = phase_main_ugv(torch, lt, admm, batched_linalg, host, mods)
         phase_ugv_engine_f64(torch, lt, admm, batched_linalg, sqp)
-        k2_ugv = phase_k2_ugv(torch, batched_linalg, card)
+        k2_ugv_err = phase_k2_ugv(torch, batched_linalg)
     if "fleet" in want:
         launches_fleet = phase_fleet(torch, lt, card, mods)
     if "qp_sharded" in want:
         launches_qps = phase_qp_sharded(torch, lt, admm, card, mods, opts.qp_nccl)
     if "surface" in want:
         launches_surface = phase_surface(torch, lt, card, mods)
-    if opts.profile and "lmpc" in want:
-        phase_profile_lmpc(torch, lt, host)
-    if opts.profile and "nlmpc" in want:
-        phase_profile_nlmpc(torch, lt, host)
     if opts.profile and "osc" in want:
         phase_profile_osc(torch, lt, host)
         phase_profile_osc_rollout(torch, lt, tk, host, mods)
-    if opts.profile and "ugv" in want:
-        phase_profile_ugv(torch, lt, host)
     if opts.sweep_k3:
         phase_sweep_k3(torch, qpf)
     if opts.k1_clocks:
@@ -4151,11 +3874,6 @@ def main(argv=None) -> int:
         phase_k3_clocks(torch, qpf)
     if opts.k4_clocks:
         phase_k4_clocks(torch)
-    if "times" in want:
-        times = phase_times(torch, lt, admm_fused, batched_linalg, card)
-        times.update(phase_times_nlmpc(torch, lt, qpf, batched_linalg, card, wall_nl))
-        times.update(phase_times_osc(torch, lt, tk, host, mods, ts, batched_linalg, card,
-                                     wall_osc))
     if want != set(PHASES):
         print(f"chip_smoke: ran only {sorted(want)}; no result line", flush=True)
         return 0
@@ -4163,17 +3881,13 @@ def main(argv=None) -> int:
     paths = {"lmpc": launches, "nlmpc": launches_nl, "osc": launches_osc, "ugv": launches_ugv,
              "fleet": launches_fleet, "qp_sharded": launches_qps, "surface": launches_surface}
 
-    def entry(name, source, replaces, err, **extra):
-        ms, plain, bound, by, lib = times[name]
+    # every time below is the number its kernel's speed line printed
+    def entry(name, source, replaces, err, speed, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=sum(p_[name] for p_ in paths.values()), max_abs_err=err, ms=ms,
-                    plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                    launches=sum(p_[name] for p_ in paths.values()), max_abs_err=err,
+                    ms=speed["ms"], plain_ms=speed["plain_ms"], bound_ms=speed["bound_ms"],
+                    bound_by=speed["bound_by"], library_ms=speed["library_ms"],
                     launches_by_path={k: v[name] for k, v in paths.items()}, **extra)
-
-    def at_shape(shape, key, bound=None):
-        ms, plain, lib, *rest = times[key]
-        return {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": rest[0] if rest else bound}
 
     def k2_device(B, k):
         row = k2_speed[(B, k, "float32")]
@@ -4181,41 +3895,55 @@ def main(argv=None) -> int:
                 "empty_kernel_device_ms": row["empty_ms"],
                 "over_empty_us": row["over_empty_us"]}
 
+    def k2_at(B, k):
+        row = k2_speed[(B, k, "float32")]
+        return {"shape": f"({B},{k},{k}),float32", "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "library_ms": row["library_ms"], "bound_ms": row["bound_ms"], **k2_device(B, k)}
+
+    k2_blocked = k2_speed["blocked"]
+    k2_ugv = []
+    for B, k in UGV_K2_SHAPES:
+        for name in ("float32", "float64"):
+            row = k2_speed[(B, k, name)]
+            k2_ugv.append({"shape": f"({B},{k},{k}),{name}", "ms": row["device_ms"],
+                           "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+                           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                           "max_abs_err": k2_ugv_err[(B, k, name)]})
     osc_shape = f"B={B_OSC},ph={PH_O},bs={BS_O},bs_p={BSP_O},w={W_O},float32"
     kernels = [
         entry("admm_fused", "libmpc_tpu_torch/csrc/admm_fused.cu",
-              "libmpc_tpu/ops/admm_pallas.py:143", k1_err["float32"],
+              "libmpc_tpu/ops/admm_pallas.py:143", k1_err["float32"], k1_speed,
               shape=f"B={B_MAIN},n={N_QP},m={M_QP},k_iters=10,float32",
               layout=k1_layout(admm_fused, B_MAIN, torch.float32),
               launches_by_batch=launches["admm_fused_by_batch"],
-              ms_float64=k1_speed["float64_B16384"], ms_B1024=k1_speed["float32_B1024"]),
+              ms_float64=k1_speed["ms_float64"], ms_B1024=k1_speed["ms_B1024"]),
         entry("chol_inverse", "libmpc_tpu_torch/csrc/chol_inverse.cu",
               "libmpc_tpu/ops/batched_linalg.py:110", k2_err["float32"],
-              shape=f"({B_MAIN},24,24),float32",
+              k2_speed[(B_MAIN, 24, "float32")], shape=f"({B_MAIN},24,24),float32",
               layout=k2_layout_str(batched_linalg,
                                    batched_linalg.layout(B_MAIN, 24, torch.float32)),
               **k2_device(B_MAIN, 24), max_abs_err_every_k_float32=k2_every,
-              at_nlmpc_shape=dict(at_shape(f"({B_NL},{ME_NL},{ME_NL}),float32", "k2_nlmpc",
-                                           k2_bound_ms(B_NL, ME_NL)[0]),
-                                  **k2_device(B_NL, ME_NL)),
-              at_osc_shape=dict(at_shape(f"({B_OSC},{W_O},{W_O}),float32", "k2_osc"),
-                                max_abs_err=k2_err["osc_float32"], **k2_device(B_OSC, W_O)),
-              blocked=dict(at_shape("({0},{1},{1}),float32".format(*K2_BLOCKED_SHAPES[0]),
-                                    "k2_blocked"),
-                           device_ms=k2_speed["blocked"]["device_ms"],
-                           host_us_per_call=k2_speed["blocked"]["host_us"],
-                           replaces="libmpc_tpu/ops/batched_linalg.py:125",
-                           max_abs_err=k2b_err["float32"]),
+              at_nlmpc_shape=k2_at(B_NL, ME_NL),
+              at_osc_shape=dict(k2_at(B_OSC, W_O), max_abs_err=k2_err["osc_float32"]),
+              blocked={"shape": "({0},{1},{1}),float32".format(*K2_BLOCKED_SHAPES[0]),
+                       "ms": k2_blocked["ms"], "plain_ms": k2_blocked["plain_ms"],
+                       "library_ms": k2_blocked["library_ms"],
+                       "bound_ms": k2_blocked["bound_ms"], "device_ms": k2_blocked["device_ms"],
+                       "host_us_per_call": k2_blocked["host_us"],
+                       "replaces": "libmpc_tpu/ops/batched_linalg.py:125",
+                       "max_abs_err": k2b_err["float32"]},
               at_ugv_shapes=k2_ugv, launches_ugv_by_shape=ugv_sum["k2_by_shape"]),
         entry("qp_inner", "libmpc_tpu_torch/csrc/qp_inner.cu",
-              "libmpc_tpu/ops/qp_inner_pallas.py:362", k3_err["float32"],
+              "libmpc_tpu/ops/qp_inner_pallas.py:362", k3_err["float32"], k3_speed,
               shape=f"B={B_NL},n={N_NL},m={M_NL},cold,float32", tier=k3_speed["tier"],
-              ms_float64=k3_speed["float64"],
+              ms_float64=k3_speed["ms_float64"],
               refactorizations_twin=k3_speed["refactorizations_twin"]),
         entry("traj_factor", "libmpc_tpu_torch/csrc/traj_factor.cu",
-              "libmpc_tpu/ops/trajectory_sweeps.py:201", k4_err["float32"], shape=osc_shape),
+              "libmpc_tpu/ops/trajectory_sweeps.py:201", k4_err["float32"], k4_speed,
+              shape=osc_shape),
         entry("traj_sweep", "libmpc_tpu_torch/csrc/traj_sweep.cu",
-              "libmpc_tpu/ops/trajectory_sweeps.py:337", k5_err["float32"], shape=osc_shape),
+              "libmpc_tpu/ops/trajectory_sweeps.py:337", k5_err["float32"], k5_speed,
+              shape=osc_shape),
         dict(name="eig_clip", route="cuda", source="libmpc_tpu_torch/csrc/eig_clip.cu",
              replaces="none (jnp.linalg.eigh at libmpc_tpu/ops/sqp.py:458)",
              shape="(256,61,61)", launches_ugv=ugv_sum["eig_clip_launches"], **k6_rows),
